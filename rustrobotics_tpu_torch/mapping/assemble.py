@@ -1,0 +1,203 @@
+"""Normal-equation assembly for pose-graph optimization (counterpart of
+``rustrobotics_tpu/mapping/assemble.py``, SE2 only, no robust kernels).
+
+Accumulate per-edge ``A^T Ω A`` blocks into H and ``A^T Ω e`` into b, add
+the gauge prior (+1e7 on the first SE2 edge's from-pose diagonal), negate
+b, and add the LM damping λ to every diagonal.
+
+- the sparsity pattern (triplet rows/cols in the reference dof layout) is
+  planned once per graph on the host in numpy (``SystemLayout``);
+- the values are one pass of tensor code per iteration
+  (``system_values``), a flat value vector aligned with the layout plus
+  the RHS and χ².
+
+Not ported yet: SE3 edges, the robust kernels and GNC
+(``robust_weight``/``robust_rho``), and the layout's ELL, block-Jacobi
+and Schur maps (they serve the CG and Schur backends).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from rustrobotics_tpu_torch.geometry import se2
+from rustrobotics_tpu_torch.mapping import linearize
+from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
+
+PRIOR_WEIGHT = 1e7  # gauge prior
+
+
+def _block_indices(off_row, off_col, nr, nc):
+    """Triplet indices for per-edge (nr, nc) blocks, in entry-major order
+    (nr, nc, E): all edges' (0, 0) entries first, then (0, 1), ... The
+    matching values are an (nr, nc, E) tensor flattened."""
+    e = off_row.shape[0]
+    r = np.broadcast_to(
+        off_row[None, None, :] + np.arange(nr)[:, None, None], (nr, nc, e)
+    )
+    c = np.broadcast_to(
+        off_col[None, None, :] + np.arange(nc)[None, :, None], (nr, nc, e)
+    )
+    return r.ravel(), c.ravel()
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemLayout:
+    """Triplet layout; value order matches ``system_values``. Arrays are
+    numpy on the host; ``to(device)`` gives a copy whose index arrays are
+    int64 tensors on that device."""
+
+    rows: np.ndarray  # (nnz,)
+    cols: np.ndarray  # (nnz,)
+    n: int  # total dof
+    prior_slice: slice  # where the prior diagonal values live
+    lam_slice: slice  # where the λ diagonal values live
+    dof_block: np.ndarray  # (n,) node of each dof
+
+    def to(self, device) -> "SystemLayout":
+        return dataclasses.replace(
+            self,
+            rows=torch.as_tensor(np.asarray(self.rows, np.int64), device=device),
+            cols=torch.as_tensor(np.asarray(self.cols, np.int64), device=device),
+        )
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def build_layout(graph: PoseGraphData) -> SystemLayout:
+    p2 = _np(graph.pose2_offsets)
+    l2 = _np(graph.lm2_offsets)
+    p3 = _np(graph.pose3_offsets)
+    empty = np.zeros(0, np.int64)
+    pp_i = p2[_np(graph.pp_from)] if p2.size else empty
+    pp_j = p2[_np(graph.pp_to)] if p2.size else empty
+    pl_i = p2[_np(graph.pl_pose)] if p2.size else empty
+    pl_j = l2[_np(graph.pl_lm)] if l2.size else empty
+    qq_i = p3[_np(graph.qq_from)] if p3.size else empty
+    qq_j = p3[_np(graph.qq_to)] if p3.size else empty
+
+    rows, cols = [], []
+    for off_r, off_c, nr, nc in [
+        (pp_i, pp_i, 3, 3), (pp_i, pp_j, 3, 3),
+        (pp_j, pp_i, 3, 3), (pp_j, pp_j, 3, 3),
+        (pl_i, pl_i, 3, 3), (pl_i, pl_j, 3, 2),
+        (pl_j, pl_i, 2, 3), (pl_j, pl_j, 2, 2),
+        (qq_i, qq_i, 6, 6), (qq_i, qq_j, 6, 6),
+        (qq_j, qq_i, 6, 6), (qq_j, qq_j, 6, 6),
+    ]:
+        r, c = _block_indices(off_r, off_c, nr, nc)
+        rows.append(r)
+        cols.append(c)
+
+    nnz_edges = sum(r.size for r in rows)
+
+    # gauge prior diagonal (first SE2 edge's from pose; for pure-3D graphs
+    # the first SE3 edge's from pose)
+    if graph.prior2 >= 0:
+        pr = p2[graph.prior2] + np.arange(3)
+    elif graph.prior3 >= 0:
+        pr = p3[graph.prior3] + np.arange(6)
+    else:
+        pr = np.zeros(0, np.int64)
+    rows.append(pr)
+    cols.append(pr)
+    prior_slice = slice(nnz_edges, nnz_edges + pr.size)
+
+    # λ damping on every diagonal; always present, 0 for GN
+    diag = np.arange(graph.total_dof)
+    rows.append(diag)
+    cols.append(diag)
+    lam_slice = slice(prior_slice.stop, prior_slice.stop + diag.size)
+
+    n = graph.total_dof
+    dof_block = np.zeros(n, np.int32)
+    bid = 0
+    for offs, size in [(p2, 3), (l2, 2), (p3, 6)]:
+        for o in offs:
+            dof_block[o:o + size] = bid
+            bid += 1
+
+    return SystemLayout(
+        rows=np.concatenate(rows).astype(np.int32),
+        cols=np.concatenate(cols).astype(np.int32),
+        n=n,
+        prior_slice=prior_slice,
+        lam_slice=lam_slice,
+        dof_block=dof_block,
+    )
+
+
+def require_se2(graph: PoseGraphData):
+    if graph.qq_from.shape[0] or graph.poses3.shape[0]:
+        raise NotImplementedError(
+            "SE3 nodes and edges are not ported to rustrobotics_tpu_torch yet")
+
+
+def _add_rhs(bvec, offsets, comp):
+    """bvec[offsets + k] += comp[k] for every component k of (d, E)."""
+    d = comp.shape[0]
+    idx = offsets[None, :] + torch.arange(d, device=offsets.device)[:, None]
+    bvec.index_add_(0, idx.reshape(-1), comp.reshape(-1))
+
+
+def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
+                  robust=None):
+    """Flat triplet values (aligned with build_layout) + RHS b (negated)
+    + total χ². ``lam`` is a number or a 0-d tensor."""
+    if robust is not None:
+        raise NotImplementedError(
+            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    require_se2(graph)
+    dtype, device = graph.dtype, graph.device
+    n = graph.total_dof
+    bvec = torch.zeros(n, dtype=dtype, device=device)
+
+    # SE2-SE2 edges
+    _, hii, hij, hjj, b_i, b_j, c2_pp = linearize.edge_terms_pp_soa(
+        graph.poses2, graph.pp_from, graph.pp_to, graph.pp_z, graph.pp_omega)
+    vals = [hii, hij, hij.transpose(0, 1), hjj]
+    _add_rhs(bvec, graph.pose2_offsets[graph.pp_from], b_i)
+    _add_rhs(bvec, graph.pose2_offsets[graph.pp_to], b_j)
+
+    # SE2-XY edges
+    _, hii, hij, hjj, b_i, b_j, c2_pl = linearize.edge_terms_pl_soa(
+        graph.poses2, graph.landmarks2,
+        graph.pl_pose, graph.pl_lm, graph.pl_z, graph.pl_omega)
+    vals += [hii, hij, hij.transpose(0, 1), hjj]
+    _add_rhs(bvec, graph.pose2_offsets[graph.pl_pose], b_i)
+    _add_rhs(bvec, graph.lm2_offsets[graph.pl_lm], b_j)
+    vals = [v.reshape(-1) for v in vals]
+
+    if graph.prior2 >= 0:
+        vals.append(torch.full((3,), prior_weight, dtype=dtype, device=device))
+    if torch.is_tensor(lam):
+        vals.append(lam.to(dtype).expand(n))
+    else:
+        vals.append(torch.full((n,), float(lam), dtype=dtype, device=device))
+    return torch.cat(vals), -bvec, c2_pp.sum() + c2_pl.sum()
+
+
+def dense_hessian(layout: SystemLayout, vals):
+    """Scatter triplets into a dense (n, n) H."""
+    h = vals.new_zeros((layout.n, layout.n))
+    rows = torch.as_tensor(layout.rows, dtype=torch.long, device=vals.device)
+    cols = torch.as_tensor(layout.cols, dtype=torch.long, device=vals.device)
+    return h.index_put_((rows, cols), vals, accumulate=True)
+
+
+def apply_update(graph: PoseGraphData, dx) -> PoseGraphData:
+    """Manifold retraction of every node from a reference-layout dx."""
+    require_se2(graph)
+    updates = {}
+    if graph.poses2.shape[0]:
+        idx = graph.pose2_offsets[:, None] + torch.arange(3, device=dx.device)
+        updates["poses2"] = se2.retract(graph.poses2, dx[idx])
+    if graph.landmarks2.shape[0]:
+        idx = graph.lm2_offsets[:, None] + torch.arange(2, device=dx.device)
+        updates["landmarks2"] = graph.landmarks2 + dx[idx]
+    return graph.replace(**updates)

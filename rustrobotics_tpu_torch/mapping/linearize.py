@@ -1,0 +1,190 @@
+"""Per-edge residuals and Jacobians for pose-graph optimization
+(counterpart of ``rustrobotics_tpu/mapping/linearize.py``, SE2 only).
+
+- SE2 pose-pose residual ``e = chart(z^-1 x1^-1 x2)`` and its closed-form
+  Jacobians;
+- SE2 pose-landmark residual ``R^T (l - t) - z`` and its Jacobians.
+
+Every function maps over a leading edge axis by broadcasting. The SE3
+pose-pose terms (``edge_terms_qq``, a ``jacfwd`` through the SE3
+retraction in the JAX package) are not ported yet: callers raise
+``NotImplementedError`` on a graph with SE3 edges.
+
+Component form (the ``*_soa`` functions): a per-edge "matrix" is an
+(r, c, E) tensor, entry-major, so the normal-equation values flatten
+straight into the triplet order of ``assemble.build_layout``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rustrobotics_tpu_torch.geometry import se2
+from rustrobotics_tpu_torch.utils.angles import wrap_angle
+
+# ----------------------------------------------------------------- SE2
+
+
+def residual_pp(x1, x2, z):
+    """Pose-pose residual, (..., 3)."""
+    return se2.compose(se2.inverse(z), se2.relative(x1, x2))
+
+
+def _deriv(like):
+    return torch.tensor([[0.0, -1.0], [1.0, 0.0]], dtype=like.dtype,
+                        device=like.device)
+
+
+def linearize_pp(x1, x2, z):
+    """Closed-form (A, B) = (de/dx1, de/dx2), each (..., 3, 3)."""
+    rz = se2.rotmat(z[..., 2])
+    r1 = se2.rotmat(x1[..., 2])
+    rz_r1_t = rz.transpose(-1, -2) @ r1.transpose(-1, -2)
+    dr1 = _deriv(x1) @ r1  # d R1 / d theta1
+    a12 = rz.transpose(-1, -2) @ dr1.transpose(-1, -2) @ (
+        x2[..., :2] - x1[..., :2])[..., None]
+    a = x1.new_zeros(x1.shape[:-1] + (3, 3))
+    a[..., :2, :2] = -rz_r1_t
+    a[..., :2, 2] = a12[..., 0]
+    a[..., 2, 2] = -1.0
+    b = x1.new_zeros(x1.shape[:-1] + (3, 3))
+    b[..., :2, :2] = rz_r1_t
+    b[..., 2, 2] = 1.0
+    return a, b
+
+
+def residual_pl(x, landmark, z):
+    """Pose-landmark residual, (..., 2)."""
+    r_t = se2.rotmat(x[..., 2]).transpose(-1, -2)
+    return torch.einsum("...ij,...j->...i", r_t, landmark - x[..., :2]) - z
+
+
+def linearize_pl(x, landmark):
+    """(A, B) = (de/dpose (..., 2, 3), de/dlandmark (..., 2, 2))."""
+    r = se2.rotmat(x[..., 2])
+    dr = _deriv(x) @ r
+    a2 = torch.einsum("...ji,...j->...i", dr, landmark - x[..., :2])
+    a = torch.cat([-r.transpose(-1, -2), a2[..., None]], dim=-1)
+    return a, r.transpose(-1, -2)
+
+
+# ------------------------------------------------- component (SoA) path
+
+
+def _mat_tmul(a, b):
+    """A^T B per edge: a (r, m, E), b (r, n, E) -> (m, n, E)."""
+    return (a[:, :, None, :] * b[:, None, :, :]).sum(0)
+
+
+def _mat_tvec(a, v):
+    """A^T v per edge: a (r, m, E), v (r, E) -> (m, E)."""
+    return (a * v[:, None, :]).sum(0)
+
+
+def _omega_components(omega):
+    """(E, d, d) -> (d, d, E)."""
+    return omega.permute(1, 2, 0)
+
+
+def edge_terms_pp_soa(poses, pp_from, pp_to, pp_z, pp_omega):
+    """SE2-SE2 terms in component form. Returns (e (3, E), hii, hij, hjj
+    (3, 3, E) each, bi, bj (3, E) each, chi2 (E,)). Same math as
+    residual_pp / linearize_pp."""
+    x1 = poses[pp_from]
+    x2 = poses[pp_to]
+    th1, thz = x1[:, 2], pp_z[:, 2]
+    c1, s1 = torch.cos(th1), torch.sin(th1)
+    cz, sz = torch.cos(thz), torch.sin(thz)
+    dx = x2[:, 0] - x1[:, 0]
+    dy = x2[:, 1] - x1[:, 1]
+    # relative translation in x1's frame
+    rel_x = c1 * dx + s1 * dy
+    rel_y = -s1 * dx + c1 * dy
+    zx, zy = pp_z[:, 0], pp_z[:, 1]
+    # residual e = z^-1 * (x1^-1 x2)
+    e_x = cz * (rel_x - zx) + sz * (rel_y - zy)
+    e_y = -sz * (rel_x - zx) + cz * (rel_y - zy)
+    e_th = wrap_angle(x2[:, 2] - th1 - thz)
+    e = torch.stack([e_x, e_y, e_th])
+
+    # A = de/dx1, B = de/dx2; cp/sp = cos/sin(th1 + thz)
+    cp = torch.cos(th1 + thz)
+    sp = torch.sin(th1 + thz)
+    zero = torch.zeros_like(cp)
+    one = torch.ones_like(cp)
+    a12x = cz * rel_y - sz * rel_x
+    a12y = -sz * rel_y - cz * rel_x
+    a = torch.stack([torch.stack([-cp, -sp, a12x]),
+                     torch.stack([sp, -cp, a12y]),
+                     torch.stack([zero, zero, -one])])
+    b = torch.stack([torch.stack([cp, sp, zero]),
+                     torch.stack([-sp, cp, zero]),
+                     torch.stack([zero, zero, one])])
+
+    om = _omega_components(pp_omega)
+    om_a = _mat_tmul(om, a)  # Ω^T A = Ω A (Ω symmetric)
+    om_b = _mat_tmul(om, b)
+    hii = _mat_tmul(a, om_a)  # A^T Ω A
+    hij = _mat_tmul(a, om_b)  # A^T Ω B
+    hjj = _mat_tmul(b, om_b)  # B^T Ω B
+    om_e = _mat_tvec(om, e)
+    bi = _mat_tvec(a, om_e)  # A^T Ω e
+    bj = _mat_tvec(b, om_e)
+    chi2 = (e * om_e).sum(0)
+    return e, hii, hij, hjj, bi, bj, chi2
+
+
+def edge_terms_pl_soa(poses, landmarks, pl_pose, pl_lm, pl_z, pl_omega):
+    """SE2-XY terms in component form: hii (3, 3, E), hij (3, 2, E), hjj
+    (2, 2, E), bi (3, E), bj (2, E), chi2 (E,). Same math as residual_pl /
+    linearize_pl."""
+    x = poses[pl_pose]
+    lm = landmarks[pl_lm]
+    th = x[:, 2]
+    c, s = torch.cos(th), torch.sin(th)
+    dx = lm[:, 0] - x[:, 0]
+    dy = lm[:, 1] - x[:, 1]
+    # e = R^T (l - t) - z
+    e0 = c * dx + s * dy - pl_z[:, 0]
+    e1 = -s * dx + c * dy - pl_z[:, 1]
+    e = torch.stack([e0, e1])
+    # A (2x3) = [-R^T | dR^T (l - t)], B (2x2) = R^T
+    a02 = -s * dx + c * dy
+    a12 = -c * dx - s * dy
+    a = torch.stack([torch.stack([-c, -s, a02]), torch.stack([s, -c, a12])])
+    b = torch.stack([torch.stack([c, s]), torch.stack([-s, c])])
+    om = _omega_components(pl_omega)
+    om_a = _mat_tmul(om, a)
+    om_b = _mat_tmul(om, b)
+    hii = _mat_tmul(a, om_a)  # 3x3
+    hij = _mat_tmul(a, om_b)  # 3x2
+    hjj = _mat_tmul(b, om_b)  # 2x2
+    om_e = _mat_tvec(om, e)
+    bi = _mat_tvec(a, om_e)
+    bj = _mat_tvec(b, om_e)
+    chi2 = (e * om_e).sum(0)
+    return e, hii, hij, hjj, bi, bj, chi2
+
+
+# ------------------------------------------------------------- batched
+
+
+def edge_terms_pp(poses, pp_from, pp_to, pp_z, pp_omega):
+    """SE2-SE2 terms: residuals (E, 3), A (E, 3, 3), B (E, 3, 3), chi2
+    contributions (E,)."""
+    x1 = poses[pp_from]
+    x2 = poses[pp_to]
+    e = residual_pp(x1, x2, pp_z)
+    a, b = linearize_pp(x1, x2, pp_z)
+    chi2 = torch.einsum("ei,eij,ej->e", e, pp_omega, e)
+    return e, a, b, chi2
+
+
+def edge_terms_pl(poses, landmarks, pl_pose, pl_lm, pl_z, pl_omega):
+    """SE2-XY terms: residuals (E, 2), A (E, 2, 3), B (E, 2, 2), chi2 (E,)."""
+    x = poses[pl_pose]
+    lm = landmarks[pl_lm]
+    e = residual_pl(x, lm, pl_z)
+    a, b = linearize_pl(x, lm)
+    chi2 = torch.einsum("ei,eij,ej->e", e, pl_omega, e)
+    return e, a, b, chi2

@@ -1,0 +1,231 @@
+"""Pose-graph optimizer: Gauss-Newton and Levenberg-Marquardt (counterpart
+of ``rustrobotics_tpu/mapping/pgo.py``).
+
+Per iteration: build the linear system, solve, retract every node. LM
+accepts or rejects the step with λ /= 2 or rollback + λ *= 2; the error
+history records the trial χ², rejected steps included (the reference
+optimizer's trace layout).
+
+Two drivers:
+- ``optimize``      : host loop, one host read of χ² and ‖dx‖ per
+                      iteration;
+- ``make_optimize`` : the device loop (counterpart of
+                      ``make_optimize_jit``): every value stays on the
+                      device, the trace is a (iters+1,) tensor.
+
+Backends: ``banded-kernel`` (the CUDA kernels; ``auto`` on the card),
+``banded-direct`` (the same chain in plain PyTorch; ``auto`` on the CPU),
+``dense`` and ``host``.
+
+Not ported yet: robust kernels and GNC (``max_edge_chi2``,
+``robust_global_cost``), ``auto-measure``, the batched fleet optimizer,
+marginals and covariances, and the ``PoseGraph`` wrapper.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from rustrobotics_tpu_torch.device import resolve_device
+from rustrobotics_tpu_torch.mapping import solvers
+from rustrobotics_tpu_torch.mapping.assemble import (
+    PRIOR_WEIGHT,
+    apply_update,
+    build_layout,
+    require_se2,
+    system_values,
+)
+from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
+from rustrobotics_tpu_torch.mapping.linearize import residual_pl, residual_pp
+
+BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host")
+
+
+def global_error(graph: PoseGraphData) -> torch.Tensor:
+    """Σ e^T Ω e over all edges, a 0-d tensor on the graph's device."""
+    require_se2(graph)
+    e = residual_pp(graph.poses2[graph.pp_from], graph.poses2[graph.pp_to],
+                    graph.pp_z)
+    c_pp = torch.einsum("ei,eij,ej->e", e, graph.pp_omega, e)
+    e = residual_pl(graph.poses2[graph.pl_pose], graph.landmarks2[graph.pl_lm],
+                    graph.pl_z)
+    c_pl = torch.einsum("ei,eij,ej->e", e, graph.pl_omega, e)
+    return c_pp.sum() + c_pl.sum()
+
+
+@dataclasses.dataclass
+class OptimizeResult:
+    graph: PoseGraphData
+    errors: list  # χ² before each recorded step (reference-trace layout)
+    norms: list  # ‖dx‖ per iteration
+    iterations: int
+
+
+def _make_solve(layout, backend: str, device: torch.device):
+    """solve(vals, b) -> dx for a backend name."""
+    if backend == "auto":
+        backend = "banded-kernel" if device.type == "cuda" else "banded-direct"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend == "host":
+        return lambda vals, b: solvers.solve_host(layout, vals, b)
+    dense_layout = layout.to(device)
+
+    def dense(vals, b):
+        return solvers.solve_dense(dense_layout, vals, b)
+
+    if backend == "dense":
+        return dense
+    make = {"banded-kernel": solvers.make_banded_kernel,
+            "banded-direct": solvers.make_banded_direct}[backend]
+    # bandwidth too large for the banded layout: dense is the right call
+    return make(layout, device) or dense
+
+
+def optimize(
+    graph: PoseGraphData,
+    num_iterations: int = 50,
+    solver: str = "gauss_newton",
+    backend: str = "host",
+    tolerance: float = 1e-4,
+    prior_weight: float = PRIOR_WEIGHT,
+    robust: str | None = None,
+    log: bool = False,
+    callback=None,
+    device=None,
+) -> OptimizeResult:
+    """Host-driven optimization loop (reference semantics)."""
+    if robust is not None:
+        raise NotImplementedError(
+            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    device = resolve_device(device)
+    graph = graph.to(device=device)
+    layout = build_layout(graph)
+    dtype = graph.dtype
+    solve_fn = _make_solve(layout, backend, device)
+
+    lm = solver in ("lm", "levenberg_marquardt")
+    lam = 0.01  # λ0
+    last_error = float(global_error(graph))
+    errors = [last_error]
+    norms = []
+    if log:
+        print(f"Loaded graph with {graph.num_nodes} nodes and "
+              f"{graph.num_edges} edges")
+        print(f"initial error :{last_error:.5f}")
+
+    it = 0
+    for it in range(1, num_iterations + 1):
+        vals, b, _ = system_values(graph, lam if lm else 0.0, prior_weight)
+        dx = solve_fn(vals, b).to(dtype)
+        prev_graph = graph
+        graph = apply_update(graph, dx)
+        norm_dx = float(torch.linalg.vector_norm(dx))
+        error = float(global_error(graph))
+        if lm:
+            if not error <= last_error:  # NaN-safe reject
+                graph = prev_graph
+                lam *= 2.0
+            else:
+                lam /= 2.0
+        if not math.isnan(error):
+            last_error = error  # recorded unconditionally, as the reference
+        norms.append(norm_dx)
+        errors.append(error)
+        if log:
+            print(f"step {it:3} : |dx| = {norm_dx:3.5f}, error = {error:3.5f}")
+        if callback is not None:
+            callback(it, graph, error, norm_dx, lam)
+        if norm_dx < tolerance:
+            break
+
+    return OptimizeResult(graph=graph, errors=errors, norms=norms,
+                          iterations=it)
+
+
+_NODE_FIELDS = ("poses2", "landmarks2")
+
+
+def make_optimize(
+    graph_template: PoseGraphData,
+    num_iterations: int = 50,
+    solver: str = "gauss_newton",
+    backend: str = "dense",
+    tolerance: float = 1e-4,
+    prior_weight: float = PRIOR_WEIGHT,
+    robust: str | None = None,
+    device=None,
+):
+    """Build an optimizer for graphs with this template's structure.
+    Returns run(graph) -> (graph, errors (iters+1,), iterations): the
+    errors tensor is NaN past the last recorded entry.
+
+    The loop keeps every value on the device. Its one host read per
+    iteration is the convergence test ``‖dx‖ < tolerance``, skipped when
+    tolerance <= 0 (nothing can pass it); capturing the step in a CUDA
+    graph is later work."""
+    if robust is not None:
+        raise NotImplementedError(
+            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    device = resolve_device(device)
+    require_se2(graph_template)
+    layout = build_layout(graph_template)
+    solve = _make_solve(layout, backend, device)
+    lm = solver in ("lm", "levenberg_marquardt")
+
+    def step_lm(g, lam, last_error, it, errors):
+        vals, b, _ = system_values(g, lam, prior_weight)
+        dx = solve(vals, b)
+        new_g = apply_update(g, dx)
+        error = global_error(new_g)
+        # NaN-safe reject: a non-finite trial error (e.g. f32 Cholesky
+        # breakdown at small λ) counts as a rejection
+        reject = ~(error <= last_error)
+        g = g.replace(**{f: torch.where(reject, getattr(g, f),
+                                        getattr(new_g, f))
+                         for f in _NODE_FIELDS})
+        lam = torch.where(reject, lam * 2.0, lam / 2.0)
+        errors[it + 1] = error
+        # the trial error is recorded unconditionally; keep the old one
+        # only when the trial was NaN, so one bad solve cannot poison
+        # every later accept test
+        last_error = torch.where(torch.isnan(error), last_error, error)
+        return g, lam, last_error, dx
+
+    def step_gn(g, errors, it):
+        # system_values' χ² is the error of the current graph, so GN needs
+        # no separate global_error per iteration
+        vals, b, chi2 = system_values(g, 0.0, prior_weight)
+        errors[it] = chi2
+        dx = solve(vals, b)
+        return apply_update(g, dx), dx
+
+    def run(graph: PoseGraphData):
+        g = graph.to(device=device)
+        dtype = g.dtype
+        errors = torch.full((num_iterations + 1,), math.nan, dtype=dtype,
+                            device=device)
+        lam = torch.tensor(0.01, dtype=dtype, device=device)
+        if lm:
+            errors[0] = global_error(g)
+            last_error = errors[0].clone()
+        it = 0
+        while it < num_iterations:
+            if lm:
+                g, lam, last_error, dx = step_lm(g, lam, last_error, it,
+                                                 errors)
+            else:
+                g, dx = step_gn(g, errors, it)
+            it += 1
+            if tolerance > 0 and bool(torch.linalg.vector_norm(dx)
+                                      < tolerance):
+                break
+        if not lm:
+            errors[it] = global_error(g)
+        return g, errors, it
+
+    return run

@@ -1,0 +1,155 @@
+"""Banded inverse-Cholesky factorization and substitution: CUDA kernels for
+Hopper and their plain PyTorch versions.
+
+Counterpart of ``rustrobotics_tpu/ops/band_chol_pallas.py``:
+
+- K1 ``factorize_kernel`` replaces ``factorize_pallas`` (its kernel
+  ``_factor_kernel`` with ``_blocked_chol_inv``/``_panel_chol_inv``):
+  sequential over block rows j, ``lp_j = Lcoup_j ldinv_{j-1}^T``,
+  ``D̂_j = Dsym_j - lp_j lp_j^T``, ``ldinv_j = chol(D̂_j)^-1``.
+- K2 ``substitute_kernel`` replaces ``substitute_pallas`` (``_fwd_kernel``
+  and ``_bwd_kernel``): ``y_j = ldinv_j (b_j - lp_j y_{j-1})``, then
+  ``x_j = ldinv_j^T (y_j - lp_{j+1}^T x_{j+1})``.
+
+The sources are ``csrc/band_chol.cu``, which says what bounds each kernel
+on an H100 and what its design does about it. All arithmetic inside is
+IEEE f32 with FMA on the CUDA cores.
+
+Each wrapper takes the plain version for a tensor on the CPU, and only
+then; for a CUDA tensor it launches the kernel or raises. ``LAUNCHES``
+counts the kernel launches of each wrapper.
+
+``solve_band_kernel`` keeps the contract of ``solve_band_pallas``: RCM,
+Jacobi scaling, symmetrization and padding in torch outside the kernels,
+f32 inside, the result cast back to the input dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from rustrobotics_tpu_torch.ops import cuda_lib
+from rustrobotics_tpu_torch.ops.batched_tri import chol_blocked, tril_inv
+
+PANEL = 128  # the kernels' panel width; kb must be a multiple of it
+
+LAUNCHES = {"factorize": 0, "substitute": 0}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    # (device, dsym, lcoup, ldinv, lp, work, nb, kb, stream)
+    "band_factorize_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # (device, ldinv, lp, bp, y, x, nb, kb, stream)
+    "band_substitute_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+}
+
+
+def _lib():
+    return cuda_lib.load("band_chol", _SIGNATURES)
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def factorize_plain(dsym, lcoup):
+    """The chain of K1 in plain PyTorch: (dsym, lcoup) (nb, kb, kb) ->
+    (ldinv, lp) (nb, kb, kb), lp[0] = 0."""
+    nb = dsym.shape[0]
+    ldinv = torch.empty_like(dsym)
+    lp = torch.zeros_like(dsym)
+    a = dsym[0]
+    for j in range(nb):
+        if j > 0:
+            lp[j] = lcoup[j] @ ldinv[j - 1].T
+            a = dsym[j] - lp[j] @ lp[j].T
+        ldinv[j] = tril_inv(chol_blocked(a))
+    return ldinv, lp
+
+
+def substitute_plain(ldinv, lp, bp):
+    """The two sweeps of K2 in plain PyTorch: solve L L^T x = bp through
+    the inverse factors; bp and x are (nb, kb)."""
+    nb = bp.shape[0]
+    y = torch.empty_like(bp)
+    for j in range(nb):
+        rhs = bp[j] if j == 0 else bp[j] - lp[j] @ y[j - 1]
+        y[j] = ldinv[j] @ rhs
+    x = torch.empty_like(bp)
+    for j in reversed(range(nb)):
+        rhs = y[j] if j == nb - 1 else y[j] - lp[j + 1].T @ x[j + 1]
+        x[j] = ldinv[j].T @ rhs
+    return x
+
+
+# ------------------------------------------------------------ kernel wrappers
+
+
+def _check_inputs(*tensors, shapes):
+    for t, shape in zip(tensors, shapes):
+        if t.device.type != "cuda":
+            raise ValueError(f"expected a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"expected float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+        if t.device != tensors[0].device:
+            raise ValueError("all tensors must be on one device")
+    kb = shapes[0][-1]
+    if kb % PANEL:
+        raise ValueError(f"kb={kb} is not a multiple of {PANEL}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def factorize_kernel(dsym, lcoup):
+    """K1: (dsym, lcoup) f32 (nb, kb, kb) -> (ldinv, lp), lp[0] = 0."""
+    if dsym.device.type == "cpu":
+        return factorize_plain(dsym, lcoup)
+    nb, kb = dsym.shape[0], dsym.shape[1]
+    _check_inputs(dsym, lcoup, shapes=[(nb, kb, kb)] * 2)
+    ldinv = torch.empty_like(dsym)
+    lp = torch.empty_like(dsym)
+    # running block, L's sub-diagonal panels, and a PANEL x kb scratch
+    work = torch.empty(2 * kb * kb + PANEL * kb, dtype=torch.float32,
+                       device=dsym.device)
+    lib = _lib()
+    status = lib.band_factorize_f32(
+        dsym.device.index, dsym.data_ptr(), lcoup.data_ptr(),
+        ldinv.data_ptr(), lp.data_ptr(), work.data_ptr(), nb, kb,
+        _stream(dsym))
+    cuda_lib.check(lib, status, "band_factorize_f32")
+    LAUNCHES["factorize"] += 1
+    return ldinv, lp
+
+
+def substitute_kernel(ldinv, lp, bp):
+    """K2: solve L L^T x = bp through (ldinv, lp); bp f32 (nb, kb)."""
+    if bp.device.type == "cpu":
+        return substitute_plain(ldinv, lp, bp)
+    nb, kb = bp.shape
+    _check_inputs(ldinv, lp, bp, shapes=[(nb, kb, kb), (nb, kb, kb), (nb, kb)])
+    y = torch.empty_like(bp)
+    x = torch.empty_like(bp)
+    lib = _lib()
+    status = lib.band_substitute_f32(
+        bp.device.index, ldinv.data_ptr(), lp.data_ptr(), bp.data_ptr(),
+        y.data_ptr(), x.data_ptr(), nb, kb, _stream(bp))
+    cuda_lib.check(lib, status, "band_substitute_f32")
+    LAUNCHES["substitute"] += 1
+    return x
+
+
+def solve_band_kernel(bl, vals, b):
+    """Banded solve through K1 and K2, f32 inside, returned in vals'
+    dtype (the contract of the JAX package's ``solve_band_pallas``)."""
+    from rustrobotics_tpu_torch.ops.band_chol import solve_banded
+
+    x = solve_banded(bl, vals.float(), b.float(), factorize_kernel,
+                     substitute_kernel)
+    return x.to(vals.dtype)

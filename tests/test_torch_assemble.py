@@ -1,0 +1,113 @@
+"""The port's linearization and normal-equation assembly against the JAX
+package, f64 on the CPU, on a small corridor graph with landmarks."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rustrobotics_tpu.mapping import assemble as jasm
+from rustrobotics_tpu.mapping import linearize as jlin
+from rustrobotics_tpu.mapping import pgo as jpgo
+from rustrobotics_tpu.mapping.synthetic import synthetic_corridor_graph_2d
+from rustrobotics_tpu_torch.mapping import assemble as tasm
+from rustrobotics_tpu_torch.mapping import linearize as tlin
+from rustrobotics_tpu_torch.mapping import pgo as tpgo
+from rustrobotics_tpu_torch.mapping.g2o import (
+    FLOAT_FIELDS,
+    INDEX_FIELDS,
+    graph_from_numpy,
+)
+
+
+def to_port(ref):
+    fields = {n: np.asarray(getattr(ref, n)) for n in FLOAT_FIELDS + INDEX_FIELDS}
+    return graph_from_numpy(fields, ref.total_dof, ref.prior2, ref.prior3,
+                            device="cpu")
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    ref = synthetic_corridor_graph_2d(256, num_landmarks=4, closure_span=32)
+    return ref, to_port(ref)
+
+
+def test_build_layout_identical(graphs):
+    ref, port = graphs
+    want = jasm.build_layout(ref)
+    got = tasm.build_layout(port)
+    np.testing.assert_array_equal(got.rows, want.rows)
+    np.testing.assert_array_equal(got.cols, want.cols)
+    np.testing.assert_array_equal(got.dof_block, want.dof_block)
+    assert got.n == want.n
+    assert got.prior_slice == want.prior_slice
+    assert got.lam_slice == want.lam_slice
+
+
+@pytest.mark.parametrize("lam", [0.0, 0.37])
+def test_system_values_match(graphs, lam):
+    ref, port = graphs
+    v_ref, b_ref, c_ref = jasm.system_values(ref, jnp.asarray(lam))
+    v, b, c = tasm.system_values(port, lam)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-10,
+                               atol=1e-10 * float(np.abs(v_ref).max()))
+    np.testing.assert_allclose(b.numpy(), np.asarray(b_ref), rtol=1e-10,
+                               atol=1e-10 * float(np.abs(b_ref).max()))
+    np.testing.assert_allclose(float(c), float(c_ref), rtol=1e-10)
+    # λ as a 0-d tensor (the LM device loop) gives the same values
+    v_t, _, _ = tasm.system_values(port, torch.tensor(lam, dtype=torch.float64))
+    np.testing.assert_array_equal(v_t.numpy(), v.numpy())
+
+
+def test_dense_hessian_matches(graphs):
+    ref, port = graphs
+    v_ref, _, _ = jasm.system_values(ref, jnp.asarray(0.0))
+    want = np.asarray(jasm.dense_hessian(jasm.build_layout(ref), v_ref))
+    layout = tasm.build_layout(port)
+    got = tasm.dense_hessian(layout, tasm.system_values(port, 0.0)[0])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10,
+                               atol=1e-10 * float(np.abs(want).max()))
+
+
+def test_apply_update_and_global_error(graphs):
+    ref, port = graphs
+    dx = np.random.default_rng(0).normal(scale=0.1, size=ref.total_dof)
+    want = jasm.apply_update(ref, jnp.asarray(dx))
+    got = tasm.apply_update(port, torch.as_tensor(dx))
+    np.testing.assert_allclose(got.poses2.numpy(), np.asarray(want.poses2),
+                               atol=1e-12, rtol=0)
+    np.testing.assert_allclose(got.landmarks2.numpy(),
+                               np.asarray(want.landmarks2), atol=1e-12, rtol=0)
+    np.testing.assert_allclose(float(tpgo.global_error(got)),
+                               float(jpgo.global_error(want)), rtol=1e-10)
+
+
+def test_edge_terms_match(graphs):
+    ref, port = graphs
+    want = jlin.edge_terms_pp(ref.poses2, ref.pp_from, ref.pp_to, ref.pp_z,
+                              ref.pp_omega)
+    got = tlin.edge_terms_pp(port.poses2, port.pp_from, port.pp_to,
+                             port.pp_z, port.pp_omega)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-9,
+                                   rtol=1e-10)
+    want = jlin.edge_terms_pl(ref.poses2, ref.landmarks2, ref.pl_pose,
+                              ref.pl_lm, ref.pl_z, ref.pl_omega)
+    got = tlin.edge_terms_pl(port.poses2, port.landmarks2, port.pl_pose,
+                             port.pl_lm, port.pl_z, port.pl_omega)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-9,
+                                   rtol=1e-10)
+
+
+def test_unported_features_raise(graphs):
+    _, port = graphs
+    with pytest.raises(NotImplementedError):
+        tasm.system_values(port, 0.0, robust="huber")
+    se3 = port.replace(poses3=torch.zeros(2, 7, dtype=torch.float64),
+                       qq_from=torch.zeros(1, dtype=torch.int64),
+                       qq_to=torch.ones(1, dtype=torch.int64))
+    with pytest.raises(NotImplementedError):
+        tasm.system_values(se3, 0.0)
+    with pytest.raises(NotImplementedError):
+        tpgo.global_error(se3)
