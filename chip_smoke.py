@@ -6,7 +6,8 @@
 Phases; any failure ends the script with a non-zero exit code:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile the CUDA kernels from csrc/ with nvcc;
+2. build: compile the CUDA sources in csrc/ with nvcc, one process per
+   source, all started together;
 3. kernel parity, f32 on the card. K1 (banded factorization) and K2
    (substitution) against their plain PyTorch versions on a
    well-conditioned random band at kb=512, nb=11, with tight tolerances;
@@ -17,22 +18,38 @@ Phases; any failure ends the script with a non-zero exit code:
    solve_band_kernel against their plain f32 versions (PARITY_TOL), and
    the kernel solve against f64 within 4x the plain f32 solve's error (the
    rule of tests/test_band_pallas.py). The undamped Gauss-Newton system is
-   at f32's edge (the 1e7 gauge prior); its errors are printed only;
-4. main path: make_optimize(backend="banded-kernel") on corridor-1728 in
-   f32, Gauss-Newton 10 iterations and Levenberg-Marquardt 6, held to
-   the χ² trace of the f64 reference and to the plain banded-direct trace;
-   both kernels' launch counters must move during this run;
-5. times from CUDA events (median of 7 after warm-up): each kernel, its
-   plain version and a dense-solve yardstick, each beside its bound; the
-   stages of one GN iteration; GN iterations/s end to end;
-6. trace: one GN run under torch.profiler, device time by kernel and the
-   device's idle share;
+   at f32's edge (the 1e7 gauge prior); its errors are printed only.
+   K3 (block-banded SpMV) against its plain version on a random band and
+   on corridor-1728's band (nb=41 block rows, kb=9 block diagonals), each
+   row within K3_ULPS of its f32 rounding unit; the plain version with its
+   operands rounded to TF32 must fall outside that limit;
+4. main paths, each with every launch counter set to 0 just before it and
+   read just after:
+   a. make_optimize(backend="banded-kernel") on corridor-1728 in f32,
+      Gauss-Newton 10 iterations and Levenberg-Marquardt 6, held to the χ²
+      trace of the f64 reference and to the plain banded-direct trace;
+      K1's and K2's counters must move;
+   b. make_optimize(backend="cg-banded") on corridor-1728 in f32, GN 10 and
+      LM 10, cg_tol=1e-6 and cg_maxiter=400 (solve_cg_banded's own
+      defaults: f32 never reaches make_optimize's 1e-10), held to the f64
+      χ² anchors and to the plain cg-banded-jnp trace; K3's counter must
+      move and the plain SpMV must not run; the CG rounds of every solve
+      are printed;
+5. times from CUDA events: each kernel, its plain version and a library
+   yardstick, each beside its bound (K3's three with L2 flushed before
+   each call, as its bound reads every byte from HBM; its L2-warm time
+   is printed beside them); the stages of one GN iteration of each main
+   path; GN iterations/s end to end for each;
+6. trace: one GN run of each main path under torch.profiler, device time
+   by kernel and the device's idle share;
 7. one JSON line describing the kernels, then the contract line
    {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import json
 import math
 import statistics
@@ -55,6 +72,30 @@ LM_LAMBDA0 = 0.01  # make_optimize's first Levenberg-Marquardt damping
 # about 10x the plain f32 chain's own distance from f64 there (the port on
 # the CPU, corridor-1728: K1 9.1e-5, lp 5.3e-6, K2 3.3e-5, solve 2.7e-4).
 PARITY_TOL = {"k1": 1e-3, "lp": 1e-4, "k2": 3e-4, "solve": 3e-3}
+
+# K3 against plain f32: each row's difference, in units of kb * 128 * 2^-24
+# * sum_j |hb_ij| |x_j| (the recursive-summation bound of one f32 dot
+# product), at most K3_ULPS. K3 reads 0.0032 on corridor-1728's band and
+# 0.00048 on the random band (H100); the plain f32 version reads 0.0025 and
+# 0.0016 against f64 (CPU). Operands rounded to TF32 read 10.5 and 0.82
+# (CPU), and a wrong tile or window O(1).
+K3_ULPS = 0.05
+
+# cg-banded on corridor-1728 (tolerance 0, cg_tol 1e-6, cg_maxiter 400).
+# The f64 anchors are the JAX package's cg-banded-jnp trace on the CPU,
+# which the port's f64 run reproduces (120.780789, 112.268295). The limits
+# come from f32 readings on the CPU before any card run: the port's f32
+# errors[1] are 2.8e-6 (GN) and 3.0e-6 (LM) from f64, the JAX package's
+# 2.9e-5 and 3.3e-6, so CG_CHI2_1_RTOL is ~30x the largest; errors[10] is
+# the f32 floor of χ² (rounding of the poses), 2.33e-5 (GN) and 1.29e-5
+# (LM) in the port, so CG_CHI2_10_MAX is ~40x the larger.
+CG_TOL, CG_MAXITER = 1e-6, 400
+CG_GN_CHI2_1 = 120.780789
+CG_LM_CHI2_1 = 112.268295
+CG_CHI2_1_RTOL = 1e-3
+CG_CHI2_10_MAX = 1e-3
+
+SOURCES = ("band_chol", "banded_matvec")
 
 
 def fail(msg):
@@ -84,6 +125,65 @@ def cuda_ms(fn, repeats=7, warmup=2):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, calls=50, repeats=5, flush=None):
+    """Device ms per call of fn for a short kernel, with the calls queued
+    behind a sleep kernel so that the host's enqueue time stays out of
+    the timed windows (median of `repeats`). Without flush: CUDA events
+    around `calls` back-to-back calls. With flush: flush() before every
+    call, and events around each call alone."""
+    import torch
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        torch.cuda._sleep(50_000_000)
+        if flush is None:
+            pairs = [(event(), event())]
+            pairs[0][0].record()
+            for _ in range(calls):
+                fn()
+            pairs[0][1].record()
+        else:
+            pairs = []
+            for _ in range(calls):
+                flush()
+                pairs.append((event(), event()))
+                pairs[-1][0].record()
+                fn()
+                pairs[-1][1].record()
+        torch.cuda.synchronize()
+        times.append(sum(a.elapsed_time(b) for a, b in pairs) / calls)
+    return statistics.median(times)
+
+
+def tf32(t):
+    """t (f32) rounded to TF32's 10-bit mantissa, to nearest."""
+    import torch
+
+    i = t.contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def reset_counts():
+    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+
+    for counts in (bk.LAUNCHES, bmk.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts():
+    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+
+    return {**bk.LAUNCHES, **bmk.LAUNCHES}
 
 
 def bound_ms(nbytes, flops):
@@ -254,19 +354,17 @@ def main_path(device):
     import torch
 
     from rustrobotics_tpu_torch.mapping.pgo import make_optimize
-    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
 
     g32 = corridor(1728, device).to(dtype=torch.float32)
     gn = make_optimize(g32, num_iterations=10, backend="banded-kernel",
                        tolerance=0.0, device=device)
     lm = make_optimize(g32, num_iterations=6, solver="lm",
                        backend="banded-kernel", tolerance=0.0, device=device)
-    for key in bk.LAUNCHES:
-        bk.LAUNCHES[key] = 0
+    reset_counts()
     _, err_gn, it_gn = gn(g32)
     _, err_lm, it_lm = lm(g32)
     torch.cuda.synchronize()
-    launches = dict(bk.LAUNCHES)
+    launches = read_counts()
 
     direct = make_optimize(g32, num_iterations=10, backend="banded-direct",
                            tolerance=0.0, device=device)
@@ -277,7 +375,8 @@ def main_path(device):
     print(f"[main] GN banded-kernel   {err_gn.tolist()}", flush=True)
     print(f"[main] GN banded-direct   {err_direct.tolist()}", flush=True)
     print(f"[main] LM banded-kernel   {err_lm.tolist()}", flush=True)
-    print(f"[main] launches during the main path: {launches}", flush=True)
+    print(f"[main] launches during the banded-kernel path: {launches}",
+          flush=True)
     require(it_gn == 10 and it_lm == 6, "iteration counts 10 and 6")
     require(bool(torch.isfinite(err_gn).all() and torch.isfinite(err_lm).all()),
             "χ² traces finite")
@@ -390,26 +489,315 @@ def times(p, gn, g32):
     return out
 
 
-def trace(gn, g32):
-    """Phase 6: one GN run of 10 iterations under torch.profiler, after a
-    warm-up run: device time by kernel and the device's idle share of the
-    traced window (first to last event). The profiler's own host cost
-    lengthens the window, so the idle share is an upper bound."""
+def k3_errors(hb, xp):
+    """K3 against its plain version on one input: the largest row
+    difference in units of the row's f32 rounding bound (K3_ULPS), the
+    same for the plain version on operands rounded to TF32, and
+    max|y_kernel - y_plain|."""
+    import torch
+
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+    from rustrobotics_tpu_torch.ops.banded import banded_matvec_plain
+
+    y_k = bmk.banded_matvec_kernel(hb, xp)
+    y_p = banded_matvec_plain(hb, xp)
+    y_t = banded_matvec_plain(tf32(hb), tf32(xp))
+    torch.cuda.synchronize()
+    kb = hb.shape[1]
+    scale = banded_matvec_plain(hb.double().abs(), xp.double().abs())
+    unit = kb * 128 * 2.0 ** -24
+
+    def ulps(y):
+        diff = (y - y_p).double().abs()
+        return float(torch.where(scale > 0, diff / (unit * scale), diff).max())
+
+    return dict(finite=bool(torch.isfinite(y_k).all()),
+                ulps=ulps(y_k), tf32_ulps=ulps(y_t),
+                max_abs_err=float((y_k - y_p).abs().max()),
+                y_max=float(y_p.abs().max()))
+
+
+def cg_system(graph, lam):
+    """Layouts and f32 normal equations of the cg-banded path at λ."""
+    from rustrobotics_tpu_torch.mapping.assemble import (
+        build_layout,
+        system_values,
+    )
+    from rustrobotics_tpu_torch.ops.banded import build_banded
+
+    layout = build_layout(graph)
+    blayout = build_banded(layout)
+    vals, b, _ = system_values(graph, lam)
+    return layout.to(graph.device), blayout.to(graph.device), vals, b
+
+
+def k3_parity(g32, device):
+    """Phase 3 for K3: a random band at corridor-1728's shapes, then
+    corridor-1728's own band with its right-hand side as x. Returns the
+    band inputs and their errors for the kernels line and the times."""
+    import torch
+
+    from rustrobotics_tpu_torch.ops.banded import _pad_x_blocks, band_values
+
+    layout, blayout, vals, b = cg_system(g32, 0.0)
+    nb, kb = blayout.nb, blayout.kb
+    gen = torch.Generator(device=device).manual_seed(1)
+    hb_r = torch.randn(nb, kb, 128, 128, generator=gen, device=device)
+    xp_r = torch.randn(nb + kb - 1, 128, generator=gen, device=device)
+    hb = band_values(blayout, layout, vals)
+    xp = _pad_x_blocks(blayout, b[blayout.perm])
+    print(f"[parity] K3: n={blayout.n} nb={nb} kb={kb} (half="
+          f"{blayout.half}); limit {K3_ULPS} x kb*128 f32 units of "
+          f"sum|hb||x| per row", flush=True)
+    out = {}
+    for name, h, x in (("random band", hb_r, xp_r),
+                       ("corridor-1728", hb, xp)):
+        e = k3_errors(h, x)
+        print(f"  K3 {name}: max row error {e['ulps']:.6g} x the bound's "
+              f"unit (plain on TF32-rounded operands: {e['tf32_ulps']:.6g});"
+              f" max|y_k - y_plain| {e['max_abs_err']:.6g} of max|y| "
+              f"{e['y_max']:.6g}", flush=True)
+        require(e["finite"], f"K3 {name} output finite")
+        require(e["ulps"] <= K3_ULPS,
+                f"K3 {name} within {K3_ULPS} x kb*128 f32 units per row")
+        require(e["tf32_ulps"] > K3_ULPS,
+                f"K3 {name}: TF32-rounded operands fall outside the limit")
+        out[name] = e
+    return dict(layout=layout, blayout=blayout, vals=vals, b=b, hb=hb,
+                xp=xp, err=out["corridor-1728"])
+
+
+@contextlib.contextmanager
+def recorded_rounds():
+    """Within the block, every solvers.pcg call appends its round count
+    to the list it yields."""
+    from rustrobotics_tpu_torch.mapping import solvers
+
+    pcg, rounds = solvers.pcg, []
+
+    def recording(*args, **kwargs):
+        x, k = pcg(*args, **kwargs)
+        rounds.append(k)
+        return x, k
+
+    solvers.pcg = recording
+    try:
+        yield rounds
+    finally:
+        solvers.pcg = pcg
+
+
+def cg_main_path(device, g32):
+    """Phase 4b: returns the cg-banded GN runner and the path's counts."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import make_optimize
+    from rustrobotics_tpu_torch.ops import banded
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+
+    kw = dict(tolerance=0.0, cg_tol=CG_TOL, cg_maxiter=CG_MAXITER,
+              device=device)
+    gn = make_optimize(g32, num_iterations=10, backend="cg-banded", **kw)
+    lm = make_optimize(g32, num_iterations=10, solver="lm",
+                       backend="cg-banded", **kw)
+    plain = banded.banded_matvec_plain
+    plain_calls = [0]
+
+    def counted_plain(*args):
+        plain_calls[0] += 1
+        return plain(*args)
+
+    banded.banded_matvec_plain = counted_plain
+    bmk.banded_matvec_plain = counted_plain
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with recorded_rounds() as rounds_gn:
+            _, err_gn, it_gn = gn(g32)
+            torch.cuda.synchronize()
+        t_gn = time.perf_counter() - t0
+        with recorded_rounds() as rounds_lm:
+            _, err_lm, it_lm = lm(g32)
+            torch.cuda.synchronize()
+        launches = read_counts()
+    finally:
+        banded.banded_matvec_plain = plain
+        bmk.banded_matvec_plain = plain
+
+    ref = {s: make_optimize(g32, num_iterations=10, solver=s,
+                            backend="cg-banded-jnp", **kw)(g32)[1]
+           for s in ("gauss_newton", "lm")}
+    err_gn, err_lm = err_gn.double().cpu(), err_lm.double().cpu()
+    print(f"[main] GN cg-banded       {err_gn.tolist()}", flush=True)
+    print(f"[main] GN cg-banded-jnp   {ref['gauss_newton'].tolist()}",
+          flush=True)
+    print(f"[main] LM cg-banded       {err_lm.tolist()}", flush=True)
+    print(f"[main] LM cg-banded-jnp   {ref['lm'].tolist()}", flush=True)
+    print(f"[main] CG rounds per solve: GN {rounds_gn} (total "
+          f"{sum(rounds_gn)}), LM {rounds_lm} (total {sum(rounds_lm)}); GN "
+          f"run {t_gn * 1e3:.4f} ms, {t_gn * 1e3 / sum(rounds_gn):.4f} ms "
+          f"per round (host clock, first run)", flush=True)
+    print(f"[main] launches during the cg-banded path: {launches}; plain "
+          f"SpMV calls {plain_calls[0]}", flush=True)
+    require(it_gn == 10 and it_lm == 10, "iteration counts 10 and 10")
+    require(bool(torch.isfinite(err_gn).all() and torch.isfinite(err_lm).all()),
+            "cg-banded χ² traces finite")
+    require(abs(err_gn[0] / GN_CHI2[0] - 1) <= 1e-4,
+            f"cg-banded GN errors[0] {err_gn[0]:.6f} within 1e-4 of "
+            f"{GN_CHI2[0]}")
+    for name, err, anchor in (("GN", err_gn, CG_GN_CHI2_1),
+                              ("LM", err_lm, CG_LM_CHI2_1)):
+        require(abs(err[1] / anchor - 1) <= CG_CHI2_1_RTOL,
+                f"cg-banded {name} errors[1] {err[1]:.6f} within "
+                f"{CG_CHI2_1_RTOL} of {anchor}")
+        require(err[10] < CG_CHI2_10_MAX,
+                f"cg-banded {name} errors[10] {err[10]:.3g} < "
+                f"{CG_CHI2_10_MAX}")
+    for name, err, key in (("GN", err_gn, "gauss_newton"),
+                           ("LM", err_lm, "lm")):
+        want = ref[key].double().cpu()
+        big = want > 1.0
+        rel = float(((err[big] - want[big]).abs() / want[big]).max())
+        require(rel <= CG_CHI2_1_RTOL,
+                f"cg-banded {name} entries above 1 within {CG_CHI2_1_RTOL} "
+                f"of cg-banded-jnp ({rel:.3g})")
+    require(launches["banded_matvec"] > 0,
+            "banded_matvec kernel launched on the cg-banded path")
+    require(plain_calls[0] == 0, "no plain SpMV on the cg-banded path")
+    return gn, launches
+
+
+def cg_times(k3, gn, g32):
+    """Phase 5 for the cg-banded path: K3's time beside its plain
+    version, the library yardstick and its bound, all three with L2
+    flushed before each call (the bound reads every byte from HBM), and
+    K3's L2-warm time as a reading; the stages of one GN iteration; the
+    time per CG round; GN iterations/s."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import solvers
+    from rustrobotics_tpu_torch.mapping.assemble import system_values
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+    from rustrobotics_tpu_torch.ops.banded import (
+        band_values,
+        banded_matvec_plain,
+        make_banded_matvec,
+    )
+
+    hb, xp = k3["hb"], k3["xp"]
+    layout, blayout, vals, b = k3["layout"], k3["blayout"], k3["vals"], k3["b"]
+    nb, kb = hb.shape[0], hb.shape[1]
+    # library yardstick: one bmm of hb laid out as (nb, 128, kb*128)
+    # against the (nb, kb*128, 1) windows of xp; the copy is made here,
+    # outside the timed region
+    hb_rows = hb.permute(0, 2, 1, 3).reshape(nb, 128, kb * 128).contiguous()
+    windows = xp.as_strided((nb, kb * 128, 1), (128, 1, 1))
+    lib_err = float((torch.bmm(hb_rows, windows).view(-1)
+                     - banded_matvec_plain(hb, xp)).abs().max())
+    # what the function needs: every hb element read once with two FLOP,
+    # xp read once, y written once
+    k3_bytes = 4 * (hb.numel() + xp.numel() + nb * 128)
+    k3_flops = 2.0 * hb.numel()
+    bound, by = bound_ms(k3_bytes, k3_flops)
+    # Before each timed call a read of 256 MB leaves L2 holding clean
+    # lines of another buffer, so every byte of the call comes from HBM,
+    # as the bound counts, with no write-back of dirty lines in its way.
+    # The CG loop itself finds hb in L2 (24 MB of the 50 MB, written by
+    # band_values and read every round): the warm time is that case, and
+    # a zero-fill flush (dirty lines) is printed as a reading.
+    junk = torch.empty(64 * 2 ** 20, device=hb.device)
+    read_flush = junk.sum
+    out = dict(
+        ms=queued_ms(lambda: bmk.banded_matvec_kernel(hb, xp), calls=20,
+                     flush=read_flush),
+        plain_ms=queued_ms(lambda: banded_matvec_plain(hb, xp), calls=20,
+                           flush=read_flush),
+        library_ms=queued_ms(lambda: torch.bmm(hb_rows, windows), calls=20,
+                             flush=read_flush),
+        bound_ms=bound, bound_by=by,
+        l2_warm_ms=queued_ms(lambda: bmk.banded_matvec_kernel(hb, xp)))
+    dirty = queued_ms(lambda: bmk.banded_matvec_kernel(hb, xp), calls=20,
+                      flush=junk.zero_)
+    print(f"[times] banded_matvec, L2 flushed before each call: kernel "
+          f"{out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, torch.bmm "
+          f"yardstick {out['library_ms']:.6f} ms (max|bmm - plain| "
+          f"{lib_err:.3g}), bound {bound:.6f} ms ({by}; {k3_flops:.4g} FLOP,"
+          f" {k3_bytes:.4g} B), kernel/bound {out['ms'] / bound:.2f}; "
+          f"readings: kernel L2-warm {out['l2_warm_ms']:.6f} ms (50 calls "
+          f"back to back), after a zero-fill flush {dirty:.6f} ms; device "
+          f"time per call, queued behind a sleep kernel", flush=True)
+
+    matvec = make_banded_matvec(blayout, layout, vals)
+    precond = solvers.make_block_jacobi(layout, vals)
+    stages = {
+        "system_values (linearize + assemble)":
+            lambda: system_values(g32, 0.0),
+        "band_values": lambda: band_values(blayout, layout, vals),
+        "make_block_jacobi": lambda: solvers.make_block_jacobi(layout, vals),
+        "one dof-space matvec (permute, pad, K3, unpermute)":
+            lambda: matvec(b),
+        "one preconditioner apply": lambda: precond(b),
+    }
+    for label, fn in stages.items():
+        print(f"[stages] cg-banded {label}: {cuda_ms(fn):.4f} ms",
+              flush=True)
+    walls = []
+    with recorded_rounds() as rounds:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solvers.solve_cg_banded(layout, blayout, vals, b, tol=CG_TOL,
+                                    maxiter=CG_MAXITER)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    rounds = rounds[-1]
+    wall = statistics.median(walls)
+    print(f"[stages] cg-banded whole solve_cg_banded at λ=0: "
+          f"{wall * 1e3:.4f} ms for {rounds} rounds, {wall * 1e3 / rounds:.4f}"
+          f" ms per round (host clock, median of 3)", flush=True)
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gn(g32)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f"[times] GN cg-banded, corridor-1728 f32: {10 / wall:.4f} it/s "
+          f"({wall / 10 * 1e3:.4f} ms/iteration, median of 3 runs of 10)",
+          flush=True)
+    return out
+
+
+K12_GROUPS = {"K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_f32": "gemm_f32",
+              "K2 band_forward": "band_forward",
+              "K2 band_backward": "band_backward", "other": ""}
+K3_GROUPS = {"K3 banded_matvec": "banded_matvec", "other": ""}
+
+
+def trace(label, run, groups):
+    """Phase 6: one run of run() under torch.profiler, after a warm-up
+    run: device time by kernel group (the first group whose pattern is in
+    the kernel's name) and the device's idle share of the traced window
+    (first to last event). The profiler's own host cost lengthens the
+    window, so the idle share is an upper bound."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gn(g32)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        gn(g32)
+        run()
         torch.cuda.synchronize()
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print("[trace] the profiler recorded no device events: device time "
-              "by kernel and idle share not measured", flush=True)
+        print(f"[trace] {label}: the profiler recorded no device events: "
+              "device time by kernel and idle share not measured",
+              flush=True)
         return
     window = (max(e.time_range.end for e in events)
               - min(e.time_range.start for e in events))
@@ -417,20 +805,17 @@ def trace(gn, g32):
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-    groups = {"K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_f32": "gemm_f32",
-              "K2 band_forward": "band_forward",
-              "K2 band_backward": "band_backward", "other": ""}
     totals = {k: [0.0, 0] for k in groups}
     for e in dev:
         key = next(k for k, pat in groups.items() if pat in e.name)
         totals[key][0] += e.time_range.end - e.time_range.start
         totals[key][1] += 1
-    print(f"[trace] GN 10 iterations: window {window / 1e3:.4f} ms, device "
+    print(f"[trace] {label}: window {window / 1e3:.4f} ms, device "
           f"busy {busy / 1e3:.4f} ms, idle share {1 - busy / window:.4f}",
           flush=True)
     for key, (us, count) in totals.items():
-        print(f"[trace] {key}: {us / 1e3:.4f} ms in {count} launches "
-              f"({us / max(count, 1):.2f} us each)", flush=True)
+        print(f"[trace] {label}: {key}: {us / 1e3:.4f} ms in {count} "
+              f"launches ({us / max(count, 1):.2f} us each)", flush=True)
 
 
 def main() -> int:
@@ -451,16 +836,21 @@ def main() -> int:
     from rustrobotics_tpu_torch.ops import cuda_lib
 
     t0 = time.perf_counter()
-    cuda_lib.build("band_chol")
-    print(f"[build] band_chol.cu built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(cuda_lib.build, SOURCES)))
+    print(f"[build] {', '.join(f'{n}.cu' for n in built)} built in "
+          f"{time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
 
     parity_random(11, 512, device)
     p1728 = parity("corridor-1728", corridor(1728, device))
     parity("corridor-4096", corridor(4096, device))
+    k3 = k3_parity(corridor(1728, device).to(dtype=torch.float32), device)
     gn, g32, launches = main_path(device)
+    cg_gn, cg_launches = cg_main_path(device, g32)
     timed = times(p1728, gn, g32)
-    trace(gn, g32)
+    timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
+    trace("GN banded-kernel, 10 iterations", lambda: gn(g32), K12_GROUPS)
+    trace("GN cg-banded, 10 iterations", lambda: cg_gn(g32), K3_GROUPS)
 
     src = "rustrobotics_tpu_torch/csrc/band_chol.cu"
     kernels = [
@@ -476,6 +866,16 @@ def main() -> int:
              err_measure="max|x_kernel - x_plain|, corridor-1728 at the "
                          "first LM step's damping",
              **timed["substitute"]),
+        dict(name="banded_matvec_f32", route="cuda",
+             source="rustrobotics_tpu_torch/csrc/banded_matvec.cu",
+             replaces="rustrobotics_tpu/ops/banded.py:110",
+             launches=cg_launches["banded_matvec"],
+             max_abs_err=k3["err"]["max_abs_err"],
+             err_measure="max|y_kernel - y_plain|, corridor-1728's band "
+                         "at λ=0 times its right-hand side",
+             ms_measure="ms, plain_ms and library_ms with L2 flushed "
+                        "before each call; l2_warm_ms 50 calls back to back",
+             **timed["banded_matvec"]),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "max_abs_err"):

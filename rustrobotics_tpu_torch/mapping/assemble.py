@@ -12,8 +12,8 @@ b, and add the LM damping λ to every diagonal.
   the RHS and χ².
 
 Not ported yet: SE3 edges, the robust kernels and GNC
-(``robust_weight``/``robust_rho``), and the layout's ELL, block-Jacobi
-and Schur maps (they serve the CG and Schur backends).
+(``robust_weight``/``robust_rho``), and the layout's Schur maps (they
+serve the Schur backend).
 """
 
 from __future__ import annotations
@@ -48,21 +48,44 @@ def _block_indices(off_row, off_col, nr, nc):
 class SystemLayout:
     """Triplet layout; value order matches ``system_values``. Arrays are
     numpy on the host; ``to(device)`` gives a copy whose index arrays are
-    int64 tensors on that device."""
+    int64 tensors on that device.
+
+    Besides the triplets it carries the two static structures of the CG
+    backends:
+    - ELL: the duplicate-summed CSR pattern padded to ``ell_width`` slots
+      a row, so the SpMV is a gather and a row sum;
+    - block maps: dof -> (node block, position in the block) with
+      identity padding to 6x6, for the block-Jacobi preconditioner.
+    """
 
     rows: np.ndarray  # (nnz,)
     cols: np.ndarray  # (nnz,)
     n: int  # total dof
     prior_slice: slice  # where the prior diagonal values live
     lam_slice: slice  # where the λ diagonal values live
+    # ELL structure (duplicates summed)
+    ell_order: np.ndarray  # (nnz,) permutation sorting triplets by (r, c)
+    ell_seg: np.ndarray  # (nnz,) segment id of each sorted triplet
+    ell_nnz: int  # number of deduped entries
+    ell_pos: np.ndarray  # (ell_nnz,) flat position row*width+slot
+    ell_nbr: np.ndarray  # (n, width) column index per slot (0-padded)
+    ell_width: int
+    # block-Jacobi maps
     dof_block: np.ndarray  # (n,) node of each dof
+    dof_pos: np.ndarray  # (n,) position of each dof in its node's block
+    pad_eye: np.ndarray  # (n_blocks, 6, 6) ones past each block's size
+    n_blocks: int
+
+    _INDEX_FIELDS = ("rows", "cols", "ell_order", "ell_seg", "ell_pos",
+                     "ell_nbr", "dof_block", "dof_pos")
 
     def to(self, device) -> "SystemLayout":
+        moved = {f: torch.as_tensor(np.asarray(getattr(self, f), np.int64),
+                                    device=device)
+                 for f in self._INDEX_FIELDS}
         return dataclasses.replace(
-            self,
-            rows=torch.as_tensor(np.asarray(self.rows, np.int64), device=device),
-            cols=torch.as_tensor(np.asarray(self.cols, np.int64), device=device),
-        )
+            self, pad_eye=torch.as_tensor(np.asarray(self.pad_eye),
+                                          device=device), **moved)
 
 
 def _np(t):
@@ -114,21 +137,58 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
     cols.append(diag)
     lam_slice = slice(prior_slice.stop, prior_slice.stop + diag.size)
 
+    rows_all = np.concatenate(rows).astype(np.int32)
+    cols_all = np.concatenate(cols).astype(np.int32)
     n = graph.total_dof
+
+    # ELL structure: sort by (row, col), group duplicates
+    order = np.lexsort((cols_all, rows_all))
+    rs, cs = rows_all[order], cols_all[order]
+    new_group = np.ones(len(rs), bool)
+    new_group[1:] = (rs[1:] != rs[:-1]) | (cs[1:] != cs[:-1])
+    seg = np.cumsum(new_group) - 1
+    uniq_r, uniq_c = rs[new_group], cs[new_group]
+    # slot within row (unique entries are row-sorted)
+    row_start = np.searchsorted(uniq_r, np.arange(n), side="left")
+    slot = np.arange(len(uniq_r)) - row_start[uniq_r]
+    width = int(slot.max()) + 1 if len(slot) else 1
+    nbr = np.zeros((n, width), np.int32)
+    nbr[uniq_r, slot] = uniq_c
+    ell_pos = uniq_r.astype(np.int64) * width + slot
+
+    # block-Jacobi maps
     dof_block = np.zeros(n, np.int32)
+    dof_pos = np.zeros(n, np.int32)
+    sizes = []
     bid = 0
     for offs, size in [(p2, 3), (l2, 2), (p3, 6)]:
         for o in offs:
             dof_block[o:o + size] = bid
+            dof_pos[o:o + size] = np.arange(size)
+            sizes.append(size)
             bid += 1
+    n_blocks = max(bid, 1)
+    pad_eye = np.zeros((n_blocks, 6, 6))
+    for k, size in enumerate(sizes):
+        idx = np.arange(size, 6)
+        pad_eye[k, idx, idx] = 1.0
 
     return SystemLayout(
-        rows=np.concatenate(rows).astype(np.int32),
-        cols=np.concatenate(cols).astype(np.int32),
+        rows=rows_all,
+        cols=cols_all,
         n=n,
         prior_slice=prior_slice,
         lam_slice=lam_slice,
+        ell_order=order,
+        ell_seg=seg.astype(np.int32),
+        ell_nnz=int(len(uniq_r)),
+        ell_pos=ell_pos,
+        ell_nbr=nbr,
+        ell_width=width,
         dof_block=dof_block,
+        dof_pos=dof_pos,
+        pad_eye=pad_eye,
+        n_blocks=n_blocks,
     )
 
 

@@ -15,7 +15,10 @@ Two drivers:
 
 Backends: ``banded-kernel`` (the CUDA kernels; ``auto`` on the card),
 ``banded-direct`` (the same chain in plain PyTorch; ``auto`` on the CPU),
-``dense`` and ``host``.
+``dense``, ``host`` and ``cg`` (block-Jacobi PCG on the ELL operator).
+``make_optimize`` also takes ``cg-banded`` (the PCG on the block-banded
+operator, its SpMV the CUDA kernel K3 on the card and plain on the CPU)
+and ``cg-banded-jnp`` (the plain SpMV everywhere; the JAX package's name).
 
 Not ported yet: robust kernels and GNC (``max_edge_chi2``,
 ``robust_global_cost``), ``auto-measure``, the batched fleet optimizer,
@@ -41,7 +44,8 @@ from rustrobotics_tpu_torch.mapping.assemble import (
 from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
 from rustrobotics_tpu_torch.mapping.linearize import residual_pl, residual_pp
 
-BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host")
+BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host", "cg",
+            "cg-banded", "cg-banded-jnp")
 
 
 def global_error(graph: PoseGraphData) -> torch.Tensor:
@@ -64,8 +68,11 @@ class OptimizeResult:
     iterations: int
 
 
-def _make_solve(layout, backend: str, device: torch.device):
-    """solve(vals, b) -> dx for a backend name."""
+def _make_solve(layout, backend: str, device: torch.device, cg_tol=1e-10,
+                cg_maxiter=None):
+    """solve(vals, b) -> dx for a backend name. ``cg_maxiter=None`` means
+    the JAX package's defaults: 4·n rounds for ``cg`` and
+    ``jax.scipy.sparse.linalg.cg``'s 10·n for the banded PCG."""
     if backend == "auto":
         backend = "banded-kernel" if device.type == "cuda" else "banded-direct"
     if backend not in BACKENDS:
@@ -73,13 +80,25 @@ def _make_solve(layout, backend: str, device: torch.device):
                          f"{BACKENDS}")
     if backend == "host":
         return lambda vals, b: solvers.solve_host(layout, vals, b)
-    dense_layout = layout.to(device)
+    dev_layout = layout.to(device)
 
     def dense(vals, b):
-        return solvers.solve_dense(dense_layout, vals, b)
+        return solvers.solve_dense(dev_layout, vals, b)
 
     if backend == "dense":
         return dense
+    if backend == "cg":
+        return lambda vals, b: solvers.solve_cg(dev_layout, vals, b,
+                                                tol=cg_tol, maxiter=cg_maxiter)
+    if backend in ("cg-banded", "cg-banded-jnp"):
+        from rustrobotics_tpu_torch.ops.banded import build_banded
+
+        blayout = build_banded(layout).to(device)
+        maxiter = 10 * layout.n if cg_maxiter is None else cg_maxiter
+        use_kernel = backend == "cg-banded"
+        return lambda vals, b: solvers.solve_cg_banded(
+            dev_layout, blayout, vals, b, tol=cg_tol, maxiter=maxiter,
+            use_kernel=use_kernel)
     make = {"banded-kernel": solvers.make_banded_kernel,
             "banded-direct": solvers.make_banded_direct}[backend]
     # bandwidth too large for the banded layout: dense is the right call
@@ -102,6 +121,9 @@ def optimize(
     if robust is not None:
         raise NotImplementedError(
             "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    if backend in ("cg-banded", "cg-banded-jnp"):
+        # as in the JAX package, the banded PCG is make_optimize's alone
+        raise ValueError(f"backend {backend!r} runs in make_optimize only")
     device = resolve_device(device)
     graph = graph.to(device=device)
     layout = build_layout(graph)
@@ -158,11 +180,19 @@ def make_optimize(
     tolerance: float = 1e-4,
     prior_weight: float = PRIOR_WEIGHT,
     robust: str | None = None,
+    cg_tol: float = 1e-10,
+    cg_maxiter: int | None = None,
     device=None,
 ):
     """Build an optimizer for graphs with this template's structure.
     Returns run(graph) -> (graph, errors (iters+1,), iterations): the
     errors tensor is NaN past the last recorded entry.
+
+    ``cg_tol`` and ``cg_maxiter`` set the PCG of the ``cg`` and
+    ``cg-banded`` backends (``cg_maxiter=None``: 4·n rounds for ``cg``,
+    10·n for ``cg-banded``). f32 does not reach the default 1e-10, so an
+    f32 run passes its own, e.g. ``cg_tol=1e-6, cg_maxiter=400``. On the
+    card ``cg-banded`` needs an f32 graph: K3 is f32 only.
 
     The loop keeps every value on the device. Its one host read per
     iteration is the convergence test ``‖dx‖ < tolerance``, skipped when
@@ -174,7 +204,8 @@ def make_optimize(
     device = resolve_device(device)
     require_se2(graph_template)
     layout = build_layout(graph_template)
-    solve = _make_solve(layout, backend, device)
+    solve = _make_solve(layout, backend, device, cg_tol=cg_tol,
+                        cg_maxiter=cg_maxiter)
     lm = solver in ("lm", "levenberg_marquardt")
 
     def step_lm(g, lam, last_error, it, errors):

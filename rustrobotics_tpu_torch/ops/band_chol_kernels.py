@@ -87,24 +87,10 @@ def substitute_plain(ldinv, lp, bp):
 
 
 def _check_inputs(*tensors, shapes):
-    for t, shape in zip(tensors, shapes):
-        if t.device.type != "cuda":
-            raise ValueError(f"expected a CUDA tensor, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"expected float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("expected a contiguous tensor")
-        if t.device != tensors[0].device:
-            raise ValueError("all tensors must be on one device")
+    cuda_lib.check_tensors(*tensors, shapes=shapes)
     kb = shapes[0][-1]
     if kb % PANEL:
         raise ValueError(f"kb={kb} is not a multiple of {PANEL}")
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def factorize_kernel(dsym, lcoup):
@@ -122,7 +108,7 @@ def factorize_kernel(dsym, lcoup):
     status = lib.band_factorize_f32(
         dsym.device.index, dsym.data_ptr(), lcoup.data_ptr(),
         ldinv.data_ptr(), lp.data_ptr(), work.data_ptr(), nb, kb,
-        _stream(dsym))
+        cuda_lib.stream(dsym))
     cuda_lib.check(lib, status, "band_factorize_f32")
     LAUNCHES["factorize"] += 1
     return ldinv, lp
@@ -139,7 +125,7 @@ def substitute_kernel(ldinv, lp, bp):
     lib = _lib()
     status = lib.band_substitute_f32(
         bp.device.index, ldinv.data_ptr(), lp.data_ptr(), bp.data_ptr(),
-        y.data_ptr(), x.data_ptr(), nb, kb, _stream(bp))
+        y.data_ptr(), x.data_ptr(), nb, kb, cuda_lib.stream(bp))
     cuda_lib.check(lib, status, "band_substitute_f32")
     LAUNCHES["substitute"] += 1
     return x

@@ -8,6 +8,7 @@ again. A failed build raises with nvcc's stderr.
 
 Each C entry point returns a ``cudaError_t`` (0 on success); ``check``
 turns a non-zero code into an exception that names the CUDA error.
+``check_tensors`` and ``stream`` serve the wrappers that launch them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -80,3 +83,25 @@ def check(lib: ctypes.CDLL, status: int, what: str):
     if status != 0:
         msg = lib.cuda_error_string(status).decode()
         raise RuntimeError(f"{what} failed: CUDA error {status} ({msg})")
+
+
+def check_tensors(*tensors, shapes):
+    """Raise ValueError unless every tensor is a contiguous f32 CUDA
+    tensor of its shape, all on one device."""
+    for t, shape in zip(tensors, shapes):
+        if t.device.type != "cuda":
+            raise ValueError(f"expected a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"expected float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("expected a contiguous tensor")
+        if t.device != tensors[0].device:
+            raise ValueError("all tensors must be on one device")
+
+
+def stream(t):
+    """The handle of PyTorch's current stream on t's device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -38,10 +38,16 @@ def test_build_layout_identical(graphs):
     got = tasm.build_layout(port)
     np.testing.assert_array_equal(got.rows, want.rows)
     np.testing.assert_array_equal(got.cols, want.cols)
-    np.testing.assert_array_equal(got.dof_block, want.dof_block)
-    assert got.n == want.n
-    assert got.prior_slice == want.prior_slice
-    assert got.lam_slice == want.lam_slice
+    for name in ("dof_block", "dof_pos", "pad_eye", "ell_order", "ell_seg",
+                 "ell_pos", "ell_nbr"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name), err_msg=name)
+    for name in ("n", "prior_slice", "lam_slice", "ell_nnz", "ell_width",
+                 "n_blocks"):
+        assert getattr(got, name) == getattr(want, name), name
+    moved = got.to("cpu")
+    assert moved.ell_nbr.dtype == torch.int64
+    np.testing.assert_array_equal(moved.ell_nbr.numpy(), want.ell_nbr)
 
 
 @pytest.mark.parametrize("lam", [0.0, 0.37])

@@ -16,6 +16,8 @@ from rustrobotics_tpu_torch.mapping.assemble import build_layout, system_values
 from rustrobotics_tpu_torch.mapping.pgo import make_optimize
 from rustrobotics_tpu_torch.mapping.synthetic import synthetic_corridor_graph_2d
 from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+from rustrobotics_tpu_torch.ops import banded
+from rustrobotics_tpu_torch.ops import banded_kernels as bmk
 from rustrobotics_tpu_torch.ops.band_chol import build_band_chol, solve_band_chol
 
 
@@ -80,3 +82,56 @@ def test_kernel_gn_tracks_plain(cuda_device):
     big = err_p > 1.0
     assert big.sum() >= 2
     torch.testing.assert_close(err_k[big], err_p[big], rtol=1e-2, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,kb", [(7, 5), (41, 9), (3, 1)])
+def test_banded_matvec_matches_plain(cuda_device, nb, kb):
+    """K3 against its plain version in f32: only the summation order
+    differs, so 1e-5 of max|y| (~100 f32 ulps over 128*kb terms)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    hb = torch.randn(nb, kb, 128, 128, generator=gen, device=cuda_device)
+    xp = torch.randn(nb + kb - 1, 128, generator=gen, device=cuda_device)
+    before = bmk.LAUNCHES["banded_matvec"]
+    y = bmk.banded_matvec_kernel(hb, xp)
+    torch.cuda.synchronize()
+    assert bmk.LAUNCHES["banded_matvec"] == before + 1
+    want = banded.banded_matvec_plain(hb, xp)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+def test_banded_matvec_rejects_bad_input(cuda_device):
+    hb = torch.zeros(3, 5, 128, 128, device=cuda_device)
+    xp = torch.zeros(7, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        bmk.banded_matvec_kernel(hb.double(), xp.double())
+    with pytest.raises(ValueError, match="shape"):
+        bmk.banded_matvec_kernel(hb, xp[:6])
+    with pytest.raises(ValueError, match="odd"):
+        bmk.banded_matvec_kernel(hb[:, :4].contiguous(), xp[:6].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        bmk.banded_matvec_kernel(hb.transpose(2, 3), xp)
+
+
+@pytest.mark.cuda
+def test_cg_banded_runs_the_kernel(cuda_device, monkeypatch):
+    """make_optimize(backend="cg-banded") on the card launches K3 and
+    never the plain SpMV, and tracks the plain backend's χ² trace."""
+    g = synthetic_corridor_graph_2d(256, num_landmarks=4, closure_span=96,
+                                    device=cuda_device, dtype=torch.float32)
+    kw = dict(num_iterations=4, tolerance=0.0, cg_tol=1e-6, cg_maxiter=400)
+    err_plain = make_optimize(g, backend="cg-banded-jnp", **kw)(g)[1]
+
+    def no_plain(*args):
+        raise AssertionError("the plain SpMV ran on the card's path")
+
+    monkeypatch.setattr(banded, "banded_matvec_plain", no_plain)
+    monkeypatch.setattr(bmk, "banded_matvec_plain", no_plain)
+    before = bmk.LAUNCHES["banded_matvec"]
+    err_k = make_optimize(g, backend="cg-banded", **kw)(g)[1]
+    assert bmk.LAUNCHES["banded_matvec"] > before
+    big = err_plain > 1.0
+    assert big.sum() >= 2
+    torch.testing.assert_close(err_k[big], err_plain[big], rtol=1e-3, atol=0)

@@ -107,7 +107,7 @@ def test_default_device_is_cuda(graphs):
 def test_unknown_backend_raises(graphs):
     _, port = graphs
     with pytest.raises(ValueError, match="backend"):
-        tpgo.make_optimize(port, backend="cg", device="cpu")
+        tpgo.make_optimize(port, backend="schur", device="cpu")
     with pytest.raises(NotImplementedError):
         tpgo.make_optimize(port, robust="huber", device="cpu")
     assert float(tpgo.global_error(port)) == pytest.approx(
