@@ -22,24 +22,41 @@ Phases; any failure ends the script with a non-zero exit code:
    K3 (block-banded SpMV) against its plain version on a random band and
    on corridor-1728's band (nb=41 block rows, kb=9 block diagonals), each
    row within K3_ULPS of its f32 rounding unit; the plain version with its
-   operands rounded to TF32 must fall outside that limit;
+   operands rounded to TF32 must fall outside that limit.
+   K4 (band assembly, one graph) on corridor-1728's λ = 0.01 triplets and
+   K5 (the same for a fleet) on the fleet's: corridor-1728 and 7 copies
+   with poses jittered by N(0, 0.05²) (numpy seed FLEET_SEED); each band
+   entry within ASSEMBLE_ULPS f32 units of the sum of its |contributions|
+   from the plain index_add_, and bit-equal between two launches. K1/K2
+   over the fleet's batch axis against the unbatched K1/K2 on each graph
+   (bit-equal expected; gated at PARITY_TOL);
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    a. make_optimize(backend="banded-kernel") on corridor-1728 in f32,
       Gauss-Newton 10 iterations and Levenberg-Marquardt 6, held to the χ²
       trace of the f64 reference and to the plain banded-direct trace;
-      K1's and K2's counters must move;
+      K4's, K1's and K2's counters must move;
    b. make_optimize(backend="cg-banded") on corridor-1728 in f32, GN 10 and
       LM 10, cg_tol=1e-6 and cg_maxiter=400 (solve_cg_banded's own
       defaults: f32 never reaches make_optimize's 1e-10), held to the f64
       χ² anchors and to the plain cg-banded-jnp trace; K3's counter must
       move and the plain SpMV must not run; the CG rounds of every solve
       are printed;
+   c. make_optimize_batch(backend="banded-kernel") on the fleet of 8 in
+      f32, GN 10 and LM 6: row 0 held to the f64 anchors; every row's LM
+      entries above 1 within 1e-2 of the unbatched banded-kernel run on
+      that graph, of the batched banded-direct run and of its f64 run;
+      every row's GN errors[0] within 1e-4 of those, errors[1] within
+      1e-2 of the unbatched banded-kernel run, errors[10] < 1e-2 (GN past
+      the first step is at f32's edge: the rest is printed); K5's counter
+      and one K1 and one K2 launch per fleet iteration, and no plain
+      scatter;
 5. times from CUDA events: each kernel, its plain version and a library
-   yardstick, each beside its bound (K3's three with L2 flushed before
-   each call, as its bound reads every byte from HBM; its L2-warm time
-   is printed beside them); the stages of one GN iteration of each main
-   path; GN iterations/s end to end for each;
+   yardstick, each beside its bound (K3's, K4's and K5's with L2 flushed
+   before each call, as their bounds count every byte through HBM; K3's
+   L2-warm time is printed beside them); the stages of one GN iteration
+   of each main path; GN iterations/s end to end for each, and the
+   fleet's graph-iterations/s against one graph's;
 6. trace: one GN run of each main path under torch.profiler, device time
    by kernel and the device's idle share;
 7. one JSON line describing the kernels, then the contract line
@@ -95,7 +112,18 @@ CG_LM_CHI2_1 = 112.268295
 CG_CHI2_1_RTOL = 1e-3
 CG_CHI2_10_MAX = 1e-3
 
-SOURCES = ("band_chol", "banded_matvec")
+# K4/K5 against the plain index_add_ on the card: each band entry's
+# difference in units of 2^-24 * the sum of its |contributions| (both sum
+# the same f32 values in other orders). The plain f32 sum against the
+# exact one reads 1.63 units at corridor-1728 (the port on the CPU); a
+# dropped or doubled term reads ~2^24.
+ASSEMBLE_ULPS = 16.0
+
+# The fleet: corridor-1728 and FLEET - 1 copies with poses jittered by
+# N(0, FLEET_JITTER²) from numpy's default_rng(FLEET_SEED).
+FLEET, FLEET_JITTER, FLEET_SEED = 8, 0.05, 0
+
+SOURCES = ("band_chol", "banded_matvec", "band_assemble")
 
 
 def fail(msg):
@@ -170,20 +198,22 @@ def tf32(t):
     return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def reset_counts():
+def _counters():
+    from rustrobotics_tpu_torch.ops import band_assemble_kernels as bak
     from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
     from rustrobotics_tpu_torch.ops import banded_kernels as bmk
 
-    for counts in (bk.LAUNCHES, bmk.LAUNCHES):
+    return (bk.LAUNCHES, bmk.LAUNCHES, bak.LAUNCHES)
+
+
+def reset_counts():
+    for counts in _counters():
         for key in counts:
             counts[key] = 0
 
 
 def read_counts():
-    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
-    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
-
-    return {**bk.LAUNCHES, **bmk.LAUNCHES}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def bound_ms(nbytes, flops):
@@ -282,9 +312,7 @@ def kernel_errors(bl, vals, b):
     ld_k, lp_k = bk.factorize_kernel(dsym, lcoup)
     ld_p, lp_p = bk.factorize_plain(dsym, lcoup)
     # K2 on the plain factor, with this system's scaled right-hand side
-    bp = torch.cat([b.float()[bl.perm],
-                    b.new_zeros(bl.nb * bl.kb - bl.n, dtype=torch.float32)])
-    bp = (bp * dinv_p).view(bl.nb, bl.kb)
+    bp = scaled_rhs(bl, b.float(), dinv_p)
     x_k = bk.substitute_kernel(ld_p, lp_p, bp)
     x_p = bk.substitute_plain(ld_p, lp_p, bp)
     x_kern = bk.solve_band_kernel(bl, vals, b)
@@ -391,7 +419,7 @@ def main_path(device):
             f"GN entries above 1 within 1e-2 of banded-direct ({float(rel):.3g})")
     require(abs(err_lm[1] / LM_CHI2_1 - 1) <= 1e-2,
             f"LM errors[1] {err_lm[1]:.6f} within 1% of {LM_CHI2_1}")
-    for key in ("factorize", "substitute"):
+    for key in ("assemble_b1", "factorize", "substitute"):
         require(launches[key] > 0, f"{key} kernel launched on the main path")
     return gn, g32, launches
 
@@ -407,6 +435,9 @@ def times(p, gn, g32):
         system_values,
     )
     from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
     from rustrobotics_tpu_torch.ops.band_chol import _prepare_blocks
 
     nb, kb, n = p["bl"].nb, p["bl"].kb, p["bl"].n
@@ -462,8 +493,8 @@ def times(p, gn, g32):
     stages = {
         "system_values (linearize + assemble)":
             lambda: system_values(g32, 0.0),
-        "band assembly (_prepare_blocks)":
-            lambda: _prepare_blocks(bl, vals32),
+        "band assembly (_prepare_blocks with K4)":
+            lambda: _prepare_blocks(bl, vals32, band_assemble_kernel),
         "K1 factorize": lambda: bk.factorize_kernel(dsym, lcoup),
         "K2 substitute": lambda: bk.substitute_kernel(ld_p, lp_p, bp),
         "whole solve_band_kernel": lambda: bk.solve_band_kernel(bl, vals32, b32),
@@ -770,9 +801,353 @@ def cg_times(k3, gn, g32):
     return out
 
 
-K12_GROUPS = {"K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_f32": "gemm_f32",
+def fleet_graphs(device):
+    """Phase 3's and 4c's fleet in f64: corridor-1728 and FLEET - 1 copies
+    with poses jittered by N(0, FLEET_JITTER²) (numpy, FLEET_SEED)."""
+    import numpy as np
+    import torch
+
+    g = corridor(1728, device)
+    rng = np.random.default_rng(FLEET_SEED)
+    poses = g.poses2.cpu().numpy()
+    return [g] + [g.replace(poses2=torch.as_tensor(
+        poses + rng.normal(0.0, FLEET_JITTER, poses.shape), device=device))
+        for _ in range(FLEET - 1)]
+
+
+def assemble_errors(bl, vals):
+    """K4 (vals (nnz,)) or K5 (vals (B, nnz)) against the plain
+    index_add_: the largest band-entry difference in units of 2^-24 * the
+    sum of its |contributions|, the plain f32 sum's own distance from the
+    exact one in the same units, max|kernel - plain|, and whether two
+    launches agree bit for bit."""
+    import torch
+
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+        band_assemble_plain,
+    )
+
+    got = band_assemble_kernel(bl, vals)
+    again = band_assemble_kernel(bl, vals)
+    want = band_assemble_plain(bl, vals)
+    unit = 2.0 ** -24 * band_assemble_plain(bl, vals.double().abs())
+    exact = band_assemble_plain(bl, vals.double())
+    torch.cuda.synchronize()
+
+    def ulps(y, ref):
+        diff = (y.double() - ref).abs()
+        return float(torch.where(unit > 0, diff / unit, diff).max())
+
+    return dict(finite=bool(torch.isfinite(got).all()),
+                ulps=ulps(got, want.double()), plain_ulps=ulps(want, exact),
+                max_abs_err=float((got - want).abs().max()),
+                deterministic=torch.equal(got, again))
+
+
+def assemble_parity(name, bl, vals):
+    """Phase 3 for K4 or K5 on one input; returns its errors."""
+    e = assemble_errors(bl, vals)
+    print(f"  {name}: max entry error {e['ulps']:.6g} f32 units of "
+          f"sum|contributions| (plain f32 against exact: "
+          f"{e['plain_ulps']:.6g}); max|kernel - plain| "
+          f"{e['max_abs_err']:.6g}; two launches bit-equal: "
+          f"{e['deterministic']}", flush=True)
+    require(e["finite"], f"{name} output finite")
+    require(e["ulps"] <= ASSEMBLE_ULPS,
+            f"{name} within {ASSEMBLE_ULPS} f32 units of the plain scatter")
+    require(e["deterministic"], f"{name} bit-equal between two launches")
+    return e
+
+
+def scaled_rhs(bl, b, dinv_p):
+    """b (..., n) permuted, padded and Jacobi-scaled: (..., nb, kb)."""
+    import torch
+
+    bp = b[..., bl.perm]
+    bp = torch.cat([bp, bp.new_zeros(bp.shape[:-1] + (bl.nb * bl.kb - bl.n,))],
+                   -1)
+    return (bp * dinv_p).view(bp.shape[:-1] + (bl.nb, bl.kb))
+
+
+def fleet_parity(bl, graphs64):
+    """Phase 3 for the fleet: K5 on the fleet's λ = 0.01 triplets, then
+    K1/K2 over the batch axis against the unbatched K1/K2 on each graph.
+    Returns the K5 errors and the fleet's f32 inputs."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.assemble import system_values
+    from rustrobotics_tpu_torch.mapping.pgo import stack_graphs
+    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import (
+        _prepare_blocks,
+        split_blocks,
+    )
+
+    vals, b, _ = system_values(stack_graphs(graphs64), LM_LAMBDA0)
+    vals, b = vals.float(), b.float()
+    print(f"[parity] fleet: B={FLEET}, corridor-1728 and {FLEET - 1} copies "
+          f"with poses jittered by N(0, {FLEET_JITTER}²); λ={LM_LAMBDA0}; "
+          f"{len(bl.sel)} kept triplets, {len(bl.uniq_idx)} band entries a "
+          f"graph", flush=True)
+    e5 = assemble_parity(f"K5 (B={FLEET})", bl, vals)
+
+    r_blocks, dinv_p = _prepare_blocks(bl, vals, band_assemble_kernel)
+    dsym, lcoup = split_blocks(r_blocks)
+    bp = scaled_rhs(bl, b, dinv_p)
+    ld_b, lp_b = bk.factorize_kernel(dsym, lcoup)
+    x_b = bk.substitute_kernel(ld_b, lp_b, bp)
+    k1 = lp = k2 = 0.0
+    equal = True
+    for i in range(FLEET):
+        ld_1, lp_1 = bk.factorize_kernel(dsym[i].contiguous(),
+                                         lcoup[i].contiguous())
+        x_1 = bk.substitute_kernel(ld_1, lp_1, bp[i].contiguous())
+        k1 = max(k1, max_eye_residual(ld_b[i], factor_of(ld_1)))
+        lp = max(lp, float((lp_b[i] - lp_1).abs().max()))
+        k2 = max(k2, float((x_b[i] - x_1).abs().max() / x_1.abs().max()))
+        equal &= (torch.equal(ld_b[i], ld_1) and torch.equal(lp_b[i], lp_1)
+                  and torch.equal(x_b[i], x_1))
+    print(f"  batched K1/K2 against unbatched, worst graph: K1 max|ldinv_b "
+          f"L_1 - I| {k1:.6g}, max|lp_b - lp_1| {lp:.6g}, K2 relative "
+          f"{k2:.6g}; every graph bit-equal: {equal}", flush=True)
+    require(bool(torch.isfinite(x_b).all()), "batched K1/K2 outputs finite")
+    require(k1 <= PARITY_TOL["k1"] and lp <= PARITY_TOL["lp"]
+            and k2 <= PARITY_TOL["k2"],
+            f"batched K1/K2 against unbatched within PARITY_TOL")
+    return dict(e5=e5, vals=vals, dsym=dsym, lcoup=lcoup, ld=ld_b, lp=lp_b,
+                bp=bp, b=b)
+
+
+@contextlib.contextmanager
+def counted_plain_scatter():
+    """Within the block, every call of the plain band scatters (the
+    default of _prepare_blocks and the assembly's plain version) adds one
+    to the count it yields."""
+    from rustrobotics_tpu_torch.ops import band_assemble_kernels as bak
+    from rustrobotics_tpu_torch.ops import band_chol
+
+    calls = [0]
+    saved = (band_chol.scatter_add, bak.band_assemble_plain)
+
+    def counted(fn):
+        def run(*args):
+            calls[0] += 1
+            return fn(*args)
+        return run
+
+    band_chol.scatter_add = counted(saved[0])
+    bak.band_assemble_plain = counted(saved[1])
+    try:
+        yield calls
+    finally:
+        band_chol.scatter_add, bak.band_assemble_plain = saved
+
+
+def max_rel(got, want, sel):
+    return float(((got[sel] - want[sel]).abs() / want[sel]).max())
+
+
+def fleet_path(device, graphs64):
+    """Phase 4c: returns the fleet's GN runner, the fleet and the path's
+    counts."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import (
+        make_optimize,
+        make_optimize_batch,
+        stack_graphs,
+    )
+
+    graphs = [g.to(dtype=torch.float32) for g in graphs64]
+    fleet = stack_graphs(graphs)
+    kw = dict(tolerance=0.0, device=device)
+    iters = {"gauss_newton": 10, "lm": 6}
+    runners = {s: make_optimize_batch(graphs[0], num_iterations=k, solver=s,
+                                      backend="banded-kernel", **kw)
+               for s, k in iters.items()}
+    out = {}
+    with counted_plain_scatter() as plain_calls:
+        reset_counts()
+        for s, run in runners.items():
+            out[s] = run(fleet)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    refs = {}
+    fleet64 = stack_graphs(graphs64)
+    for s, k in iters.items():
+        one = make_optimize(graphs[0], num_iterations=k, solver=s,
+                            backend="banded-kernel", **kw)
+        direct = make_optimize_batch(graphs[0], num_iterations=k, solver=s,
+                                     backend="banded-direct", **kw)
+        refs[s] = {"unbatched banded-kernel": torch.stack(
+                       [one(g)[1] for g in graphs]).double().cpu(),
+                   "batched banded-direct": direct(fleet)[1].double().cpu(),
+                   "batched banded-direct f64": direct(fleet64)[1].cpu()}
+    err = {s: out[s][1].double().cpu() for s in iters}
+    for s in iters:
+        for i in range(FLEET):
+            print(f"[main] fleet {s} row {i}: {err[s][i].tolist()}",
+                  flush=True)
+    print(f"[main] launches during the fleet path: {launches}; plain band "
+          f"scatters {plain_calls[0]}", flush=True)
+
+    require(all(out[s][2].tolist() == [k] * FLEET for s, k in iters.items()),
+            "fleet iteration counts 10 (GN) and 6 (LM) in every row")
+    require(all(bool(torch.isfinite(err[s]).all()) for s in iters),
+            "fleet χ² traces finite")
+    gn, lm = err["gauss_newton"], err["lm"]
+    require(abs(gn[0, 0] / GN_CHI2[0] - 1) <= 1e-4
+            and abs(gn[0, 1] / GN_CHI2[1] - 1) <= 1e-2
+            and abs(lm[0, 1] / LM_CHI2_1 - 1) <= 1e-2,
+            f"fleet row 0 at the f64 anchors (GN errors[1] {gn[0, 1]:.6f}, "
+            f"LM errors[1] {lm[0, 1]:.6f})")
+    # LM's damped systems are resolved in f32: every entry above 1 of
+    # every row is held to all three runs. GN's undamped ones are at f32's
+    # edge past the first step (on the CPU, f32 errors[1] of the jittered
+    # rows is up to 0.46 from f64, and two f32 factorizations disagree by
+    # a few %), so GN errors[1] is held to the unbatched run of the same
+    # kernels (K1/K2/K5 give each graph the unbatched result bit for bit;
+    # only the atomic order of the RHS scatter differs), errors[0] to f64,
+    # and the rest is printed as readings.
+    for ref in refs["lm"]:
+        w_lm, w_gn = refs["lm"][ref], refs["gauss_newton"][ref]
+        lm_rel = max(max_rel(lm[i], w_lm[i], w_lm[i] > 1.0)
+                     for i in range(FLEET))
+        gn_rel = [max(max_rel(gn[i, k:k + 1], w_gn[i, k:k + 1],
+                              w_gn[i, k:k + 1] > 1.0) for i in range(FLEET))
+                  for k in (0, 1)]
+        gn_all = max(max_rel(gn[i], w_gn[i], w_gn[i] > 1.0)
+                     for i in range(FLEET))
+        print(f"[main] fleet against the {ref} run, worst row: LM entries "
+              f"above 1 {lm_rel:.6g}; GN errors[0] {gn_rel[0]:.6g}, "
+              f"errors[1] {gn_rel[1]:.6g}, entries above 1 {gn_all:.6g}",
+              flush=True)
+        require(lm_rel <= 1e-2, f"every fleet LM row within 1e-2 of the "
+                                f"{ref} run (entries above 1)")
+        require(gn_rel[0] <= 1e-4, f"every fleet GN errors[0] within 1e-4 "
+                                   f"of the {ref} run")
+        if ref == "unbatched banded-kernel":
+            require(gn_rel[1] <= 1e-2, f"every fleet GN errors[1] within "
+                                       f"1e-2 of the {ref} run")
+    require(float(gn[:, 10].max()) < 1e-2,
+            f"every fleet GN row converged: max errors[10] "
+            f"{float(gn[:, 10].max()):.3g} < 1e-2")
+    steps = sum(iters.values())
+    for key in ("assemble_batch", "factorize", "substitute"):
+        require(launches[key] == steps,
+                f"{key} launched once a fleet iteration ({launches[key]} == "
+                f"{steps})")
+    require(launches["assemble_b1"] == 0 and plain_calls[0] == 0,
+            "no one-graph assembly and no plain scatter on the fleet path")
+    return runners["gauss_newton"], fleet, launches
+
+
+def assemble_times(bl, vals):
+    """K4 or K5's time, its plain version's and the library yardstick's,
+    each with L2 flushed before the call (the band's write dominates the
+    bound), beside the bound: the band written once and the kept values
+    read once; one addition a kept value."""
+    import torch
+
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+        band_assemble_plain,
+    )
+
+    batch = vals.shape[:-1]
+    graphs = vals.shape[0] if batch else 1
+    band = bl.nb * bl.kb * 2 * bl.kb
+    kept = len(bl.sel)
+    # yardstick: one index_add_ of the values gathered (outside the
+    # timing) in plan order into a zeroed band
+    pre = vals[..., bl.sel_sorted].contiguous()
+    dest = bl.uniq_idx[bl.seg_sorted]
+    lib_err = float((torch.zeros(batch + (band,), device=vals.device)
+                     .index_add_(-1, dest, pre)
+                     - band_assemble_plain(bl, vals)).abs().max())
+    nbytes = 4 * graphs * (band + kept)
+    bound, by = bound_ms(nbytes, graphs * kept)
+    junk = torch.empty(64 * 2 ** 20, device=vals.device)
+    out = dict(
+        ms=queued_ms(lambda: band_assemble_kernel(bl, vals), calls=20,
+                     flush=junk.sum),
+        plain_ms=queued_ms(lambda: band_assemble_plain(bl, vals), calls=20,
+                           flush=junk.sum),
+        library_ms=queued_ms(
+            lambda: torch.zeros(batch + (band,), device=vals.device)
+            .index_add_(-1, dest, pre), calls=20, flush=junk.sum),
+        bound_ms=bound, bound_by=by)
+    print(f"[times] band_assemble B={graphs}, L2 flushed before each call: "
+          f"kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, "
+          f"zeros + index_add_ yardstick {out['library_ms']:.6f} ms "
+          f"(max|yardstick - plain| {lib_err:.3g}), bound {bound:.6f} ms "
+          f"({by}; {nbytes:.4g} B), kernel/bound {out['ms'] / bound:.2f}",
+          flush=True)
+    return out
+
+
+def fleet_times(fp, bl, gn_fleet, fleet, gn_one, g32):
+    """Phase 5 for the fleet: the stages of one fleet GN iteration and
+    graph-iterations/s at B = FLEET against one graph's GN run, measured
+    in turns (median of 5 runs of 10 iterations each)."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.assemble import (
+        apply_update,
+        system_values,
+    )
+    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import _prepare_blocks
+
+    vals, b, _ = system_values(fleet, 0.0)
+    dx = bk.solve_band_kernel(bl, vals, b)
+    stages = {
+        "system_values (linearize + assemble)":
+            lambda: system_values(fleet, 0.0),
+        "band assembly (_prepare_blocks with K5)":
+            lambda: _prepare_blocks(bl, vals, band_assemble_kernel),
+        "K1 factorize": lambda: bk.factorize_kernel(fp["dsym"], fp["lcoup"]),
+        "K2 substitute":
+            lambda: bk.substitute_kernel(fp["ld"], fp["lp"], fp["bp"]),
+        "whole solve_band_kernel": lambda: bk.solve_band_kernel(bl, vals, b),
+        "apply_update": lambda: apply_update(fleet, dx),
+    }
+    for label, fn in stages.items():
+        print(f"[stages] fleet B={FLEET} {label}: {cuda_ms(fn):.4f} ms",
+              flush=True)
+
+    walls = {1: [], FLEET: []}
+    for run, arg, key in ((gn_one, g32, 1), (gn_fleet, fleet, FLEET)):
+        run(arg)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for run, arg, key in ((gn_one, g32, 1), (gn_fleet, fleet, FLEET)):
+            t0 = time.perf_counter()
+            run(arg)
+            torch.cuda.synchronize()
+            walls[key].append(time.perf_counter() - t0)
+    rate = {k: k * 10 / statistics.median(w) for k, w in walls.items()}
+    print(f"[times] GN banded-kernel, corridor-1728 f32, graph-iterations/s:"
+          f" B={FLEET} fleet {rate[FLEET]:.4f} ({statistics.median(walls[FLEET]) / 10 * 1e3:.4f}"
+          f" ms a fleet iteration), B=1 {rate[1]:.4f} "
+          f"({statistics.median(walls[1]) / 10 * 1e3:.4f} ms an iteration);"
+          f" ratio {rate[FLEET] / rate[1]:.4f} (median of 5 runs of 10 "
+          f"iterations each, in turns)", flush=True)
+
+
+K12_GROUPS = {"K4 band_assemble": "band_assemble",
+              "K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_f32": "gemm_f32",
               "K2 band_forward": "band_forward",
               "K2 band_backward": "band_backward", "other": ""}
+FLEET_GROUPS = {("K5" + k[2:] if k.startswith("K4") else k): v
+                for k, v in K12_GROUPS.items()}
 K3_GROUPS = {"K3 banded_matvec": "banded_matvec", "other": ""}
 
 
@@ -843,26 +1218,39 @@ def main() -> int:
 
     parity_random(11, 512, device)
     p1728 = parity("corridor-1728", corridor(1728, device))
+    e4 = assemble_parity("K4 (corridor-1728)", p1728["bl"],
+                         p1728["vals"].float())
     parity("corridor-4096", corridor(4096, device))
     k3 = k3_parity(corridor(1728, device).to(dtype=torch.float32), device)
+    graphs64 = fleet_graphs(device)
+    fp = fleet_parity(p1728["bl"], graphs64)
     gn, g32, launches = main_path(device)
     cg_gn, cg_launches = cg_main_path(device, g32)
+    fleet_gn, fleet, fleet_launches = fleet_path(device, graphs64)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
+    timed["assemble_b1"] = assemble_times(p1728["bl"], p1728["vals"].float())
+    timed["assemble_batch"] = assemble_times(p1728["bl"], fp["vals"])
+    fleet_times(fp, p1728["bl"], fleet_gn, fleet, gn, g32)
     trace("GN banded-kernel, 10 iterations", lambda: gn(g32), K12_GROUPS)
     trace("GN cg-banded, 10 iterations", lambda: cg_gn(g32), K3_GROUPS)
+    trace(f"GN banded-kernel fleet B={FLEET}, 10 iterations",
+          lambda: fleet_gn(fleet), FLEET_GROUPS)
 
     src = "rustrobotics_tpu_torch/csrc/band_chol.cu"
+    asm = "rustrobotics_tpu_torch/csrc/band_assemble.cu"
     kernels = [
         dict(name="band_factorize_f32", route="cuda", source=src,
              replaces="rustrobotics_tpu/ops/band_chol_pallas.py:264",
              launches=launches["factorize"], max_abs_err=p1728["k1"],
+             fleet_launches=fleet_launches["factorize"],
              err_measure="max|ldinv_kernel L_plain - I|, corridor-1728 at "
                          "the first LM step's damping",
              **timed["factorize"]),
         dict(name="band_substitute_f32", route="cuda", source=src,
              replaces="rustrobotics_tpu/ops/band_chol_pallas.py:307",
              launches=launches["substitute"], max_abs_err=p1728["k2_abs"],
+             fleet_launches=fleet_launches["substitute"],
              err_measure="max|x_kernel - x_plain|, corridor-1728 at the "
                          "first LM step's damping",
              **timed["substitute"]),
@@ -876,6 +1264,24 @@ def main() -> int:
              ms_measure="ms, plain_ms and library_ms with L2 flushed "
                         "before each call; l2_warm_ms 50 calls back to back",
              **timed["banded_matvec"]),
+        dict(name="band_assemble_f32 (K4, B=1)", route="cuda", source=asm,
+             replaces="tools/tpu_pallas_scatter_probe.py:44",
+             launches=launches["assemble_b1"], max_abs_err=e4["max_abs_err"],
+             err_measure="max|band_kernel - band_plain|, corridor-1728's "
+                         "triplets at the first LM step's damping",
+             ms_measure="ms, plain_ms and library_ms with L2 flushed "
+                        "before each call",
+             **timed["assemble_b1"]),
+        dict(name=f"band_assemble_f32 (K5, B={FLEET})", route="cuda",
+             source=asm,
+             replaces="tools/tpu_pallas_fleet_scatter_probe.py:38",
+             launches=fleet_launches["assemble_batch"],
+             max_abs_err=fp["e5"]["max_abs_err"],
+             err_measure=f"max|band_kernel - band_plain|, the fleet of "
+                         f"{FLEET}'s triplets at the first LM step's damping",
+             ms_measure="ms, plain_ms and library_ms with L2 flushed "
+                        "before each call",
+             **timed["assemble_batch"]),
     ]
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "max_abs_err"):

@@ -24,6 +24,12 @@
 // caller's stream; the latency of that chain, not the FLOP rate, is what
 // this first version pays.
 //
+// A fleet of B same-structure graphs runs as B chains side by side: every
+// kernel of the host loop takes a grid axis over the graphs (blockIdx.z of
+// the GEMM, blockIdx.x of the panel and sweep kernels) and per-graph
+// strides, so the loop issues the same ~250 launches for all B graphs.
+// The per-graph arithmetic is that of B = 1, bit for bit.
+//
 // K2 replaces ...::substitute_pallas (kernels _fwd_kernel, _bwd_kernel):
 //     y_j = ldinv_j (b_j - lp_j y_{j-1}),      j = 0 .. nb-1
 //     x_j = ldinv_j^T (y_j - lp_{j+1}^T x_{j+1}), j = nb-1 .. 0
@@ -53,16 +59,21 @@ constexpr int GEMM_THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr int PANEL_THREADS = 512;
 constexpr int SUB_THREADS = 1024;   // multiple of PANEL and of 32
 constexpr size_t PANEL_SMEM = (2 * PANEL * PANEL + PANEL) * sizeof(float);
+constexpr int MAX_BATCH = 65535;    // the GEMM's grid z limit
 
 // C[M, N] = alpha * A[M, K] op(B) + beta * C, row-major with leading
 // dimensions; op(B) = B^T with B stored (N, K) when TRANS_B, else B stored
 // (K, N). M and N are multiples of TILE, K of TK. C must not overlap A or
-// B. With beta == 0, C is not read.
+// B. With beta == 0, C is not read. Graph blockIdx.z reads and writes at
+// blockIdx.z times the strides sa, sb, sc.
 template <bool TRANS_B>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32(int K, float alpha, const float* __restrict__ A, int lda,
-         const float* __restrict__ B, int ldb, float beta,
-         float* __restrict__ C, int ldc) {
+gemm_f32(int K, float alpha, const float* __restrict__ A, int lda, size_t sa,
+         const float* __restrict__ B, int ldb, size_t sb, float beta,
+         float* __restrict__ C, int ldc, size_t sc) {
+  A += blockIdx.z * sa;
+  B += blockIdx.z * sb;
+  C += blockIdx.z * sc;
   __shared__ float As[TK][TILE + 1];
   __shared__ float Bs[TK][TILE + 1];
   const int tid = threadIdx.x;
@@ -111,10 +122,13 @@ gemm_f32(int K, float alpha, const float* __restrict__ A, int lda,
 // j of L (from row j: the trailing block is kept symmetric, and a row is a
 // conflict-free read), scales row j of X, then applies the rank-1 update
 // to the trailing block and eliminates column j from the rows of X below,
-// so X = L^-1 is built as [L | I] is reduced. Two barriers a step.
+// so X = L^-1 is built as [L | I] is reduced. Two barriers a step. CTA
+// blockIdx.x takes graph blockIdx.x, at strides sa and sl.
 __global__ void __launch_bounds__(PANEL_THREADS)
-panel_chol_inv(const float* __restrict__ a_g, int lda, float* __restrict__ linv_g,
-               int ldl) {
+panel_chol_inv(const float* __restrict__ a_g, int lda, size_t sa,
+               float* __restrict__ linv_g, int ldl, size_t sl) {
+  a_g += blockIdx.x * sa;
+  linv_g += blockIdx.x * sl;
   extern __shared__ float smem[];
   float* a = smem;                    // trailing block, PANEL x PANEL
   float* x = smem + PANEL * PANEL;    // L^-1 under construction
@@ -193,10 +207,15 @@ __device__ void gemv_t(const float* __restrict__ m, const float* v, float* part,
   }
 }
 
-// Forward sweep, one CTA: y_j = ldinv_j (b_j - lp_j y_{j-1}).
+// Forward sweep, one CTA a graph: y_j = ldinv_j (b_j - lp_j y_{j-1}).
 __global__ void __launch_bounds__(SUB_THREADS)
 band_forward(const float* __restrict__ ldinv, const float* __restrict__ lp,
              const float* __restrict__ bp, float* __restrict__ y, int nb, int kb) {
+  const size_t gv = blockIdx.x * (size_t)nb * kb, gm = gv * kb;
+  ldinv += gm;
+  lp += gm;
+  bp += gv;
+  y += gv;
   extern __shared__ float sm[];
   float* carry = sm;       // y_{j-1}, then y_j
   float* t = sm + kb;      // right-hand side of step j
@@ -212,11 +231,16 @@ band_forward(const float* __restrict__ ldinv, const float* __restrict__ lp,
   }
 }
 
-// Backward sweep, one CTA: x_j = ldinv_j^T (y_j - lp_{j+1}^T x_{j+1}); the
-// lp term is skipped at the last block (lp[nb] is never read).
+// Backward sweep, one CTA a graph: x_j = ldinv_j^T (y_j - lp_{j+1}^T
+// x_{j+1}); the lp term is skipped at the last block (lp[nb] is never read).
 __global__ void __launch_bounds__(SUB_THREADS)
 band_backward(const float* __restrict__ ldinv, const float* __restrict__ lp,
               const float* __restrict__ y, float* __restrict__ x, int nb, int kb) {
+  const size_t gv = blockIdx.x * (size_t)nb * kb, gm = gv * kb;
+  ldinv += gm;
+  lp += gm;
+  y += gv;
+  x += gv;
   extern __shared__ float sm[];
   float* carry = sm;           // x_{j+1}, then x_j
   float* t = sm + kb;
@@ -233,13 +257,19 @@ band_backward(const float* __restrict__ ldinv, const float* __restrict__ lp,
   }
 }
 
+// One GEMM per graph of the batch, each operand at its own graph stride.
+struct Batch {
+  cudaStream_t s;
+  int count;
+};
+
 template <bool TRANS_B>
-cudaError_t gemm(cudaStream_t s, int M, int N, int K, float alpha,
-                 const float* A, int lda, const float* B, int ldb, float beta,
-                 float* C, int ldc) {
-  const dim3 grid(N / TILE, M / TILE);
-  gemm_f32<TRANS_B><<<grid, GEMM_THREADS, 0, s>>>(K, alpha, A, lda, B, ldb,
-                                                   beta, C, ldc);
+cudaError_t gemm(Batch bt, int M, int N, int K, float alpha, const float* A,
+                 int lda, size_t sa, const float* B, int ldb, size_t sb,
+                 float beta, float* C, int ldc, size_t sc) {
+  const dim3 grid(N / TILE, M / TILE, bt.count);
+  gemm_f32<TRANS_B><<<grid, GEMM_THREADS, 0, bt.s>>>(K, alpha, A, lda, sa, B,
+                                                      ldb, sb, beta, C, ldc, sc);
   return cudaGetLastError();
 }
 
@@ -257,52 +287,64 @@ const char* cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1. dsym, lcoup: (nb, kb, kb) f32 inputs (dsym symmetric). ldinv, lp:
-// (nb, kb, kb) outputs, lp[0] = 0. work: 2 kb^2 + PANEL kb floats.
+// K1. dsym, lcoup: (batch, nb, kb, kb) f32 inputs (dsym symmetric). ldinv,
+// lp: (batch, nb, kb, kb) outputs, lp[:, 0] = 0. work: batch x (2 kb^2 +
+// PANEL kb) floats.
 int band_factorize_f32(int device, const float* dsym, const float* lcoup,
                        float* ldinv, float* lp, float* work, int nb, int kb,
-                       void* stream) {
-  if (nb < 1 || kb < PANEL || kb % PANEL != 0) return cudaErrorInvalidValue;
+                       int batch, void* stream) {
+  if (nb < 1 || kb < PANEL || kb % PANEL != 0 || batch < 1 ||
+      batch > MAX_BATCH)
+    return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(device));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Batch bt{static_cast<cudaStream_t>(stream), batch};
+  const cudaStream_t s = bt.s;
   const size_t blk = (size_t)kb * kb;
+  const size_t gs = nb * blk;                  // graph stride of the band
+  const size_t ws = 2 * blk + (size_t)PANEL * kb;  // graph stride of work
   float* a = work;               // running block D̂_j, factored in place
   float* lbuf = work + blk;      // L_j's panels below the diagonal panels
   float* acc = work + 2 * blk;   // PANEL x kb scratch (leading dim kb)
   const int np = kb / PANEL;
+  const size_t row = blk * sizeof(float);
   RETURN_IF_ERROR(cudaFuncSetAttribute(
       panel_chol_inv, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)PANEL_SMEM));
-  RETURN_IF_ERROR(cudaMemsetAsync(lp, 0, blk * sizeof(float), s));
+  // block j of every graph: one strided memset or copy for the batch
+  RETURN_IF_ERROR(cudaMemset2DAsync(lp, gs * sizeof(float), 0, row, batch, s));
   for (int j = 0; j < nb; ++j) {
     float* li = ldinv + j * blk;
-    RETURN_IF_ERROR(cudaMemsetAsync(li, 0, blk * sizeof(float), s));
-    RETURN_IF_ERROR(cudaMemcpyAsync(a, dsym + j * blk, blk * sizeof(float),
-                                    cudaMemcpyDeviceToDevice, s));
+    RETURN_IF_ERROR(
+        cudaMemset2DAsync(li, gs * sizeof(float), 0, row, batch, s));
+    RETURN_IF_ERROR(cudaMemcpy2DAsync(a, ws * sizeof(float), dsym + j * blk,
+                                      gs * sizeof(float), row, batch,
+                                      cudaMemcpyDeviceToDevice, s));
     if (j > 0) {
       float* lpj = lp + j * blk;
       // lp_j = Lcoup_j ldinv_{j-1}^T ; D̂_j = Dsym_j - lp_j lp_j^T
-      RETURN_IF_ERROR(gemm<true>(s, kb, kb, kb, 1.f, lcoup + j * blk, kb,
-                                 ldinv + (j - 1) * blk, kb, 0.f, lpj, kb));
-      RETURN_IF_ERROR(gemm<true>(s, kb, kb, kb, -1.f, lpj, kb, lpj, kb, 1.f,
-                                 a, kb));
+      RETURN_IF_ERROR(gemm<true>(bt, kb, kb, kb, 1.f, lcoup + j * blk, kb, gs,
+                                 ldinv + (j - 1) * blk, kb, gs, 0.f, lpj, kb,
+                                 gs));
+      RETURN_IF_ERROR(gemm<true>(bt, kb, kb, kb, -1.f, lpj, kb, gs, lpj, kb,
+                                 gs, 1.f, a, kb, ws));
     }
     // diagonal panels: Linv_ii, then L[rest, i] = A[rest, i] Linv_ii^T and
     // the trailing update A[rest, rest] -= L[rest, i] L[rest, i]^T
     for (int i = 0; i < np; ++i) {
       const size_t o = (size_t)i * PANEL;
-      panel_chol_inv<<<1, PANEL_THREADS, PANEL_SMEM, s>>>(a + o * kb + o, kb,
-                                                          li + o * kb + o, kb);
+      panel_chol_inv<<<batch, PANEL_THREADS, PANEL_SMEM, s>>>(
+          a + o * kb + o, kb, ws, li + o * kb + o, kb, gs);
       RETURN_IF_ERROR(cudaGetLastError());
       const int rest = kb - (i + 1) * PANEL;
       if (rest == 0) continue;
       const size_t r0 = o + PANEL;
-      RETURN_IF_ERROR(gemm<true>(s, rest, PANEL, PANEL, 1.f, a + r0 * kb + o,
-                                 kb, li + o * kb + o, kb, 0.f,
-                                 lbuf + r0 * kb + o, kb));
-      RETURN_IF_ERROR(gemm<true>(s, rest, rest, PANEL, -1.f,
-                                 lbuf + r0 * kb + o, kb, lbuf + r0 * kb + o,
-                                 kb, 1.f, a + r0 * kb + r0, kb));
+      RETURN_IF_ERROR(gemm<true>(bt, rest, PANEL, PANEL, 1.f, a + r0 * kb + o,
+                                 kb, ws, li + o * kb + o, kb, gs, 0.f,
+                                 lbuf + r0 * kb + o, kb, ws));
+      RETURN_IF_ERROR(gemm<true>(bt, rest, rest, PANEL, -1.f,
+                                 lbuf + r0 * kb + o, kb, ws,
+                                 lbuf + r0 * kb + o, kb, ws, 1.f,
+                                 a + r0 * kb + r0, kb, ws));
     }
     // off-diagonal inverse panels, one panel row k at a time:
     // Linv[k, :k] = -Linv_kk (L[k, :k] Linv[:k, :k]); Linv's upper panels
@@ -311,28 +353,30 @@ int band_factorize_f32(int device, const float* dsym, const float* lcoup,
     for (int k = 1; k < np; ++k) {
       const size_t r0 = (size_t)k * PANEL;
       const int w = k * PANEL;
-      RETURN_IF_ERROR(gemm<false>(s, PANEL, w, w, 1.f, lbuf + r0 * kb, kb, li,
-                                  kb, 0.f, acc, kb));
-      RETURN_IF_ERROR(gemm<false>(s, PANEL, w, PANEL, -1.f,
-                                  li + r0 * kb + r0, kb, acc, kb, 0.f,
-                                  li + r0 * kb, kb));
+      RETURN_IF_ERROR(gemm<false>(bt, PANEL, w, w, 1.f, lbuf + r0 * kb, kb,
+                                  ws, li, kb, gs, 0.f, acc, kb, ws));
+      RETURN_IF_ERROR(gemm<false>(bt, PANEL, w, PANEL, -1.f,
+                                  li + r0 * kb + r0, kb, gs, acc, kb, ws, 0.f,
+                                  li + r0 * kb, kb, gs));
     }
   }
   return cudaGetLastError();
 }
 
-// K2. ldinv, lp: (nb, kb, kb) f32; bp: (nb, kb). y: (nb, kb) scratch for
-// the forward sweep; x: (nb, kb) output.
+// K2. ldinv, lp: (batch, nb, kb, kb) f32; bp: (batch, nb, kb). y: (batch,
+// nb, kb) scratch for the forward sweep; x: (batch, nb, kb) output.
 int band_substitute_f32(int device, const float* ldinv, const float* lp,
                         const float* bp, float* y, float* x, int nb, int kb,
-                        void* stream) {
-  if (nb < 1 || kb < PANEL || kb % PANEL != 0) return cudaErrorInvalidValue;
+                        int batch, void* stream) {
+  if (nb < 1 || kb < PANEL || kb % PANEL != 0 || batch < 1 ||
+      batch > MAX_BATCH)
+    return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = (2 * (size_t)kb + SUB_THREADS) * sizeof(float);
-  band_forward<<<1, SUB_THREADS, smem, s>>>(ldinv, lp, bp, y, nb, kb);
+  band_forward<<<batch, SUB_THREADS, smem, s>>>(ldinv, lp, bp, y, nb, kb);
   RETURN_IF_ERROR(cudaGetLastError());
-  band_backward<<<1, SUB_THREADS, smem, s>>>(ldinv, lp, y, x, nb, kb);
+  band_backward<<<batch, SUB_THREADS, smem, s>>>(ldinv, lp, y, x, nb, kb);
   return cudaGetLastError();
 }
 

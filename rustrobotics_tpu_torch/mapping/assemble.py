@@ -9,7 +9,9 @@ b, and add the LM damping λ to every diagonal.
   planned once per graph on the host in numpy (``SystemLayout``);
 - the values are one pass of tensor code per iteration
   (``system_values``), a flat value vector aligned with the layout plus
-  the RHS and χ².
+  the RHS and χ²;
+- a fleet of same-structure graphs (``pgo.stack_graphs``) runs the same
+  code with a leading batch axis on every value.
 
 Not ported yet: SE3 edges, the robust kernels and GNC
 (``robust_weight``/``robust_rho``), and the layout's Schur maps (they
@@ -193,34 +195,39 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
 
 
 def require_se2(graph: PoseGraphData):
-    if graph.qq_from.shape[0] or graph.poses3.shape[0]:
+    if graph.qq_from.shape[0] or graph.poses3.shape[-2]:
         raise NotImplementedError(
             "SE3 nodes and edges are not ported to rustrobotics_tpu_torch yet")
 
 
 def _add_rhs(bvec, offsets, comp):
-    """bvec[offsets + k] += comp[k] for every component k of (d, E)."""
-    d = comp.shape[0]
+    """bvec[..., offsets + k] += comp[..., k, :] for every component k of
+    comp (..., d, E)."""
+    d = comp.shape[-2]
     idx = offsets[None, :] + torch.arange(d, device=offsets.device)[:, None]
-    bvec.index_add_(0, idx.reshape(-1), comp.reshape(-1))
+    bvec.index_add_(-1, idx.reshape(-1),
+                    comp.reshape(comp.shape[:-2] + (-1,)))
 
 
 def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
                   robust=None):
     """Flat triplet values (aligned with build_layout) + RHS b (negated)
-    + total χ². ``lam`` is a number or a 0-d tensor."""
+    + total χ². ``lam`` is a number or a tensor of the graph's batch shape
+    (0-d for one graph). A fleet gives vals (B, nnz), b (B, n) and χ²
+    (B,)."""
     if robust is not None:
         raise NotImplementedError(
             "robust kernels are not ported to rustrobotics_tpu_torch yet")
     require_se2(graph)
     dtype, device = graph.dtype, graph.device
+    batch = graph.batch_shape
     n = graph.total_dof
-    bvec = torch.zeros(n, dtype=dtype, device=device)
+    bvec = torch.zeros(batch + (n,), dtype=dtype, device=device)
 
     # SE2-SE2 edges
     _, hii, hij, hjj, b_i, b_j, c2_pp = linearize.edge_terms_pp_soa(
         graph.poses2, graph.pp_from, graph.pp_to, graph.pp_z, graph.pp_omega)
-    vals = [hii, hij, hij.transpose(0, 1), hjj]
+    vals = [hii, hij, hij.transpose(-3, -2), hjj]
     _add_rhs(bvec, graph.pose2_offsets[graph.pp_from], b_i)
     _add_rhs(bvec, graph.pose2_offsets[graph.pp_to], b_j)
 
@@ -228,36 +235,41 @@ def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
     _, hii, hij, hjj, b_i, b_j, c2_pl = linearize.edge_terms_pl_soa(
         graph.poses2, graph.landmarks2,
         graph.pl_pose, graph.pl_lm, graph.pl_z, graph.pl_omega)
-    vals += [hii, hij, hij.transpose(0, 1), hjj]
+    vals += [hii, hij, hij.transpose(-3, -2), hjj]
     _add_rhs(bvec, graph.pose2_offsets[graph.pl_pose], b_i)
     _add_rhs(bvec, graph.lm2_offsets[graph.pl_lm], b_j)
-    vals = [v.reshape(-1) for v in vals]
+    vals = [v.reshape(batch + (-1,)) for v in vals]
 
     if graph.prior2 >= 0:
-        vals.append(torch.full((3,), prior_weight, dtype=dtype, device=device))
+        vals.append(torch.full(batch + (3,), prior_weight, dtype=dtype,
+                               device=device))
     if torch.is_tensor(lam):
-        vals.append(lam.to(dtype).expand(n))
+        vals.append(lam.to(dtype)[..., None].expand(batch + (n,)))
     else:
-        vals.append(torch.full((n,), float(lam), dtype=dtype, device=device))
-    return torch.cat(vals), -bvec, c2_pp.sum() + c2_pl.sum()
+        vals.append(torch.full(batch + (n,), float(lam), dtype=dtype,
+                               device=device))
+    return torch.cat(vals, -1), -bvec, c2_pp.sum(-1) + c2_pl.sum(-1)
 
 
 def dense_hessian(layout: SystemLayout, vals):
-    """Scatter triplets into a dense (n, n) H."""
-    h = vals.new_zeros((layout.n, layout.n))
+    """Scatter triplets into a dense (..., n, n) H."""
+    n = layout.n
     rows = torch.as_tensor(layout.rows, dtype=torch.long, device=vals.device)
     cols = torch.as_tensor(layout.cols, dtype=torch.long, device=vals.device)
-    return h.index_put_((rows, cols), vals, accumulate=True)
+    h = vals.new_zeros(vals.shape[:-1] + (n * n,))
+    h.index_add_(-1, rows * n + cols, vals)
+    return h.view(vals.shape[:-1] + (n, n))
 
 
 def apply_update(graph: PoseGraphData, dx) -> PoseGraphData:
-    """Manifold retraction of every node from a reference-layout dx."""
+    """Manifold retraction of every node from a reference-layout dx
+    (..., n), batched as the graph."""
     require_se2(graph)
     updates = {}
-    if graph.poses2.shape[0]:
+    if graph.pose2_offsets.shape[0]:
         idx = graph.pose2_offsets[:, None] + torch.arange(3, device=dx.device)
-        updates["poses2"] = se2.retract(graph.poses2, dx[idx])
-    if graph.landmarks2.shape[0]:
+        updates["poses2"] = se2.retract(graph.poses2, dx[..., idx])
+    if graph.lm2_offsets.shape[0]:
         idx = graph.lm2_offsets[:, None] + torch.arange(2, device=dx.device)
-        updates["landmarks2"] = graph.landmarks2 + dx[idx]
+        updates["landmarks2"] = graph.landmarks2 + dx[..., idx]
     return graph.replace(**updates)

@@ -35,6 +35,10 @@ class PoseGraphData:
     3D: poses3 (N3, 7) [t, q_wxyz].
     Edges reference type-local rows (into poses2/landmarks2/poses3);
     index tensors are int64.
+
+    A fleet (``pgo.stack_graphs``) carries a leading batch axis on the
+    float fields only; the index fields, ``total_dof`` and the priors are
+    the graphs' shared structure.
     """
 
     # nodes
@@ -66,8 +70,8 @@ class PoseGraphData:
 
     @property
     def num_nodes(self) -> int:
-        return (self.poses2.shape[0] + self.landmarks2.shape[0]
-                + self.poses3.shape[0])
+        return (self.pose2_offsets.shape[0] + self.lm2_offsets.shape[0]
+                + self.pose3_offsets.shape[0])
 
     @property
     def num_edges(self) -> int:
@@ -76,7 +80,12 @@ class PoseGraphData:
 
     @property
     def is_3d(self) -> bool:
-        return self.poses3.shape[0] > 0
+        return self.pose3_offsets.shape[0] > 0
+
+    @property
+    def batch_shape(self) -> torch.Size:
+        """() for one graph, (B,) for a fleet."""
+        return self.poses2.shape[:-2]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -116,6 +125,25 @@ def graph_from_numpy(fields: dict, total_dof: int, prior2: int = -1,
             np.asarray(fields[name], dtype=np.int64), device=device)
     return PoseGraphData(**tensors, total_dof=int(total_dof),
                          prior2=int(prior2), prior3=int(prior3))
+
+
+def batch_from_numpy(fields: dict, total_dof: int, prior2: int = -1,
+                     prior3: int = -1, device=None,
+                     dtype=None) -> PoseGraphData:
+    """The fleet counterpart of ``graph_from_numpy``: the arrays of a
+    stacked JAX graph (``stack_graphs`` there stacks every leaf, the index
+    ones too) carried across as numpy. Float arrays keep their leading B
+    axis; each index array must hold one row B times, and that row is kept
+    once. Raises ValueError when the rows differ."""
+    shared = {}
+    for name in INDEX_FIELDS:
+        rows = np.asarray(fields[name])
+        if (rows != rows[:1]).any():
+            raise ValueError(f"index field {name!r} differs between the "
+                             f"graphs of the batch")
+        shared[name] = rows[0]
+    return graph_from_numpy({**fields, **shared}, total_dof, prior2, prior3,
+                            device=device, dtype=dtype)
 
 
 def load_g2o(path: str, dtype=torch.float64, device=None) -> PoseGraphData:

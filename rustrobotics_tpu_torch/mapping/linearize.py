@@ -12,7 +12,8 @@ retraction in the JAX package) are not ported yet: callers raise
 
 Component form (the ``*_soa`` functions): a per-edge "matrix" is an
 (r, c, E) tensor, entry-major, so the normal-equation values flatten
-straight into the triplet order of ``assemble.build_layout``.
+straight into the triplet order of ``assemble.build_layout``. A fleet's
+leading batch axis rides in front: (B, r, c, E).
 """
 
 from __future__ import annotations
@@ -71,41 +72,53 @@ def linearize_pl(x, landmark):
 # ------------------------------------------------- component (SoA) path
 
 
+def _vec(parts):
+    """Components (..., E) each -> (..., d, E)."""
+    return torch.stack(parts, dim=-2)
+
+
+def _mat(rows):
+    """Rows of components -> (..., r, c, E)."""
+    return torch.stack([_vec(r) for r in rows], dim=-3)
+
+
 def _mat_tmul(a, b):
-    """A^T B per edge: a (r, m, E), b (r, n, E) -> (m, n, E)."""
-    return (a[:, :, None, :] * b[:, None, :, :]).sum(0)
+    """A^T B per edge: a (..., r, m, E), b (..., r, n, E) -> (..., m, n, E)."""
+    return (a[..., :, :, None, :] * b[..., :, None, :, :]).sum(-4)
 
 
 def _mat_tvec(a, v):
-    """A^T v per edge: a (r, m, E), v (r, E) -> (m, E)."""
-    return (a * v[:, None, :]).sum(0)
+    """A^T v per edge: a (..., r, m, E), v (..., r, E) -> (..., m, E)."""
+    return (a * v[..., :, None, :]).sum(-3)
 
 
 def _omega_components(omega):
-    """(E, d, d) -> (d, d, E)."""
-    return omega.permute(1, 2, 0)
+    """(..., E, d, d) -> (..., d, d, E)."""
+    return omega.movedim(-3, -1)
 
 
 def edge_terms_pp_soa(poses, pp_from, pp_to, pp_z, pp_omega):
-    """SE2-SE2 terms in component form. Returns (e (3, E), hii, hij, hjj
-    (3, 3, E) each, bi, bj (3, E) each, chi2 (E,)). Same math as
-    residual_pp / linearize_pp."""
-    x1 = poses[pp_from]
-    x2 = poses[pp_to]
-    th1, thz = x1[:, 2], pp_z[:, 2]
+    """SE2-SE2 terms in component form. Returns (e (..., 3, E), hii, hij,
+    hjj (..., 3, 3, E) each, bi, bj (..., 3, E) each, chi2 (..., E)).
+    Same math as residual_pp / linearize_pp. A leading batch axis on
+    poses, pp_z and pp_omega carries through; the edge indices are
+    shared."""
+    x1 = poses[..., pp_from, :]
+    x2 = poses[..., pp_to, :]
+    th1, thz = x1[..., 2], pp_z[..., 2]
     c1, s1 = torch.cos(th1), torch.sin(th1)
     cz, sz = torch.cos(thz), torch.sin(thz)
-    dx = x2[:, 0] - x1[:, 0]
-    dy = x2[:, 1] - x1[:, 1]
+    dx = x2[..., 0] - x1[..., 0]
+    dy = x2[..., 1] - x1[..., 1]
     # relative translation in x1's frame
     rel_x = c1 * dx + s1 * dy
     rel_y = -s1 * dx + c1 * dy
-    zx, zy = pp_z[:, 0], pp_z[:, 1]
+    zx, zy = pp_z[..., 0], pp_z[..., 1]
     # residual e = z^-1 * (x1^-1 x2)
     e_x = cz * (rel_x - zx) + sz * (rel_y - zy)
     e_y = -sz * (rel_x - zx) + cz * (rel_y - zy)
-    e_th = wrap_angle(x2[:, 2] - th1 - thz)
-    e = torch.stack([e_x, e_y, e_th])
+    e_th = wrap_angle(x2[..., 2] - th1 - thz)
+    e = _vec([e_x, e_y, e_th])
 
     # A = de/dx1, B = de/dx2; cp/sp = cos/sin(th1 + thz)
     cp = torch.cos(th1 + thz)
@@ -114,12 +127,8 @@ def edge_terms_pp_soa(poses, pp_from, pp_to, pp_z, pp_omega):
     one = torch.ones_like(cp)
     a12x = cz * rel_y - sz * rel_x
     a12y = -sz * rel_y - cz * rel_x
-    a = torch.stack([torch.stack([-cp, -sp, a12x]),
-                     torch.stack([sp, -cp, a12y]),
-                     torch.stack([zero, zero, -one])])
-    b = torch.stack([torch.stack([cp, sp, zero]),
-                     torch.stack([-sp, cp, zero]),
-                     torch.stack([zero, zero, one])])
+    a = _mat([[-cp, -sp, a12x], [sp, -cp, a12y], [zero, zero, -one]])
+    b = _mat([[cp, sp, zero], [-sp, cp, zero], [zero, zero, one]])
 
     om = _omega_components(pp_omega)
     om_a = _mat_tmul(om, a)  # Ω^T A = Ω A (Ω symmetric)
@@ -130,29 +139,29 @@ def edge_terms_pp_soa(poses, pp_from, pp_to, pp_z, pp_omega):
     om_e = _mat_tvec(om, e)
     bi = _mat_tvec(a, om_e)  # A^T Ω e
     bj = _mat_tvec(b, om_e)
-    chi2 = (e * om_e).sum(0)
+    chi2 = (e * om_e).sum(-2)
     return e, hii, hij, hjj, bi, bj, chi2
 
 
 def edge_terms_pl_soa(poses, landmarks, pl_pose, pl_lm, pl_z, pl_omega):
-    """SE2-XY terms in component form: hii (3, 3, E), hij (3, 2, E), hjj
-    (2, 2, E), bi (3, E), bj (2, E), chi2 (E,). Same math as residual_pl /
-    linearize_pl."""
-    x = poses[pl_pose]
-    lm = landmarks[pl_lm]
-    th = x[:, 2]
+    """SE2-XY terms in component form: hii (..., 3, 3, E), hij (..., 3, 2,
+    E), hjj (..., 2, 2, E), bi (..., 3, E), bj (..., 2, E), chi2 (..., E).
+    Same math as residual_pl / linearize_pl; batches as edge_terms_pp_soa."""
+    x = poses[..., pl_pose, :]
+    lm = landmarks[..., pl_lm, :]
+    th = x[..., 2]
     c, s = torch.cos(th), torch.sin(th)
-    dx = lm[:, 0] - x[:, 0]
-    dy = lm[:, 1] - x[:, 1]
+    dx = lm[..., 0] - x[..., 0]
+    dy = lm[..., 1] - x[..., 1]
     # e = R^T (l - t) - z
-    e0 = c * dx + s * dy - pl_z[:, 0]
-    e1 = -s * dx + c * dy - pl_z[:, 1]
-    e = torch.stack([e0, e1])
+    e0 = c * dx + s * dy - pl_z[..., 0]
+    e1 = -s * dx + c * dy - pl_z[..., 1]
+    e = _vec([e0, e1])
     # A (2x3) = [-R^T | dR^T (l - t)], B (2x2) = R^T
     a02 = -s * dx + c * dy
     a12 = -c * dx - s * dy
-    a = torch.stack([torch.stack([-c, -s, a02]), torch.stack([s, -c, a12])])
-    b = torch.stack([torch.stack([c, s]), torch.stack([-s, c])])
+    a = _mat([[-c, -s, a02], [s, -c, a12]])
+    b = _mat([[c, s], [-s, c]])
     om = _omega_components(pl_omega)
     om_a = _mat_tmul(om, a)
     om_b = _mat_tmul(om, b)
@@ -162,7 +171,7 @@ def edge_terms_pl_soa(poses, landmarks, pl_pose, pl_lm, pl_z, pl_omega):
     om_e = _mat_tvec(om, e)
     bi = _mat_tvec(a, om_e)
     bj = _mat_tvec(b, om_e)
-    chi2 = (e * om_e).sum(0)
+    chi2 = (e * om_e).sum(-2)
     return e, hii, hij, hjj, bi, bj, chi2
 
 

@@ -6,12 +6,15 @@ accepts or rejects the step with λ /= 2 or rollback + λ *= 2; the error
 history records the trial χ², rejected steps included (the reference
 optimizer's trace layout).
 
-Two drivers:
-- ``optimize``      : host loop, one host read of χ² and ‖dx‖ per
-                      iteration;
-- ``make_optimize`` : the device loop (counterpart of
-                      ``make_optimize_jit``): every value stays on the
-                      device, the trace is a (iters+1,) tensor.
+Three drivers:
+- ``optimize``            : host loop, one host read of χ² and ‖dx‖ per
+                            iteration;
+- ``make_optimize``       : the device loop (counterpart of
+                            ``make_optimize_jit``): every value stays on
+                            the device, the trace is a (iters+1,) tensor;
+- ``make_optimize_batch`` : the same loop over a fleet of same-structure
+                            graphs (``stack_graphs``), the counterpart of
+                            ``jax.vmap`` over ``make_optimize_jit``.
 
 Backends: ``banded-kernel`` (the CUDA kernels; ``auto`` on the card),
 ``banded-direct`` (the same chain in plain PyTorch; ``auto`` on the CPU),
@@ -21,8 +24,8 @@ operator, its SpMV the CUDA kernel K3 on the card and plain on the CPU)
 and ``cg-banded-jnp`` (the plain SpMV everywhere; the JAX package's name).
 
 Not ported yet: robust kernels and GNC (``max_edge_chi2``,
-``robust_global_cost``), ``auto-measure``, the batched fleet optimizer,
-marginals and covariances, and the ``PoseGraph`` wrapper.
+``robust_global_cost``), ``auto-measure``, the batched PCG backends of the
+fleet, marginals and covariances, and the ``PoseGraph`` wrapper.
 """
 
 from __future__ import annotations
@@ -41,7 +44,11 @@ from rustrobotics_tpu_torch.mapping.assemble import (
     require_se2,
     system_values,
 )
-from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
+from rustrobotics_tpu_torch.mapping.g2o import (
+    FLOAT_FIELDS,
+    INDEX_FIELDS,
+    PoseGraphData,
+)
 from rustrobotics_tpu_torch.mapping.linearize import residual_pl, residual_pp
 
 BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host", "cg",
@@ -49,15 +56,16 @@ BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host", "cg",
 
 
 def global_error(graph: PoseGraphData) -> torch.Tensor:
-    """Σ e^T Ω e over all edges, a 0-d tensor on the graph's device."""
+    """Σ e^T Ω e over all edges, a tensor of the graph's batch shape (0-d
+    for one graph) on its device."""
     require_se2(graph)
-    e = residual_pp(graph.poses2[graph.pp_from], graph.poses2[graph.pp_to],
-                    graph.pp_z)
-    c_pp = torch.einsum("ei,eij,ej->e", e, graph.pp_omega, e)
-    e = residual_pl(graph.poses2[graph.pl_pose], graph.landmarks2[graph.pl_lm],
-                    graph.pl_z)
-    c_pl = torch.einsum("ei,eij,ej->e", e, graph.pl_omega, e)
-    return c_pp.sum() + c_pl.sum()
+    e = residual_pp(graph.poses2[..., graph.pp_from, :],
+                    graph.poses2[..., graph.pp_to, :], graph.pp_z)
+    c_pp = torch.einsum("...ei,...eij,...ej->...e", e, graph.pp_omega, e)
+    e = residual_pl(graph.poses2[..., graph.pl_pose, :],
+                    graph.landmarks2[..., graph.pl_lm, :], graph.pl_z)
+    c_pl = torch.einsum("...ei,...eij,...ej->...e", e, graph.pl_omega, e)
+    return c_pp.sum(-1) + c_pl.sum(-1)
 
 
 @dataclasses.dataclass
@@ -257,6 +265,143 @@ def make_optimize(
                 break
         if not lm:
             errors[it] = global_error(g)
+        return g, errors, it
+
+    return run
+
+
+def stack_graphs(graphs) -> PoseGraphData:
+    """Stack same-structure graphs into a fleet: the float fields
+    (``FLOAT_FIELDS``) gain a leading batch axis B. The index fields,
+    ``total_dof``, ``prior2`` and ``prior3`` are the shared structure and
+    must be equal in every graph (ValueError otherwise). The JAX package
+    stacks the index leaves too (one copy per graph); the port keeps one
+    copy, which every batched function indexes with."""
+    graphs = list(graphs)
+    first = graphs[0]
+    for g in graphs[1:]:
+        if (g.total_dof, g.prior2, g.prior3) != (
+                first.total_dof, first.prior2, first.prior3):
+            raise ValueError("graphs differ in total_dof or the gauge prior")
+        for name in INDEX_FIELDS:
+            a, b = getattr(first, name), getattr(g, name)
+            if a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+                raise ValueError(f"graphs differ in {name!r}: a fleet needs "
+                                 f"one structure")
+    return first.replace(**{
+        name: torch.stack([getattr(g, name) for g in graphs])
+        for name in FLOAT_FIELDS})
+
+
+def make_optimize_batch(
+    graph_template: PoseGraphData,
+    num_iterations: int = 50,
+    solver: str = "gauss_newton",
+    backend: str = "dense",
+    tolerance: float = 1e-4,
+    prior_weight: float = PRIOR_WEIGHT,
+    robust: str | None = None,
+    cg_tol: float = 1e-10,
+    cg_maxiter: int | None = None,
+    device=None,
+):
+    """Batched fleet optimizer, the counterpart of ``jax.vmap`` over
+    ``make_optimize_jit``: B same-structure graphs (``stack_graphs``) run
+    one loop, each kernel launch covering every graph. Returns
+    run(batched_graph) -> (graphs, errors (B, iters+1), iters (B,)).
+
+    Backends ``dense``, ``banded-direct``, ``banded-kernel`` and ``auto``,
+    with ``make_optimize``'s arguments; the template may be one graph or a
+    fleet. ``host`` raises ValueError, as the JAX device loop does; the
+    PCG backends (``cg``, ``cg-banded``, ``cg-banded-jnp``) raise
+    NotImplementedError: a batched PCG with per-row round counts is later
+    work (ROADMAP), and ``cg_tol``/``cg_maxiter`` are accepted for the
+    same signature.
+
+    The loop has the semantics of JAX's batched ``while_loop``: it runs
+    while any row's condition (it < num_iterations and not ‖dx‖ <
+    tolerance) holds, and a row whose condition has failed keeps its
+    state (nodes, λ, last error, iteration count, ‖dx‖, trace) from then
+    on. So row i's errors, NaN tail and iteration count equal
+    ``make_optimize`` on graph i. The one host read per iteration is the
+    any-row-active test, skipped when tolerance <= 0."""
+    if robust is not None:
+        raise NotImplementedError(
+            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    if backend == "host":
+        raise ValueError(f"the batched loop needs a device backend, got "
+                         f"{backend!r}")
+    if backend in ("cg", "cg-banded", "cg-banded-jnp"):
+        raise NotImplementedError(
+            f"backend {backend!r} has no batched form yet (a batched PCG "
+            f"with per-row round counts; ROADMAP Queue 1)")
+    device = resolve_device(device)
+    require_se2(graph_template)
+    solve = _make_solve(build_layout(graph_template), backend, device)
+    lm = solver in ("lm", "levenberg_marquardt")
+    n_it = num_iterations
+
+    def select(active, new, old):
+        """new where the row is active, else old (rows on the first axis)."""
+        return torch.where(active.view((-1,) + (1,) * (new.dim() - 1)),
+                           new, old)
+
+    def put(errors, it, value):
+        """errors[row, it[row]] = value[row]; an index past the trace (a
+        finished row's) is clamped, and select() then drops the write."""
+        return errors.scatter(1, it.clamp(max=n_it)[:, None],
+                              value[:, None])
+
+    def run(graph: PoseGraphData):
+        g = graph.to(device=device)
+        if len(g.batch_shape) != 1:
+            raise ValueError("make_optimize_batch runs a fleet: build it "
+                             "with stack_graphs")
+        dtype, batch = g.dtype, g.batch_shape[0]
+        errors = torch.full((batch, n_it + 1), math.nan, dtype=dtype,
+                            device=device)
+        lam = torch.full((batch,), 0.01, dtype=dtype, device=device)
+        it = torch.zeros(batch, dtype=torch.long, device=device)
+        norm_dx = torch.full((batch,), math.inf, dtype=dtype, device=device)
+        last_error = torch.full((batch,), math.inf, dtype=dtype,
+                                device=device)
+        if lm:
+            errors[:, 0] = global_error(g)
+            last_error = errors[:, 0].clone()
+        for _ in range(n_it):
+            active = (it < n_it) & ~(norm_dx < tolerance)
+            if tolerance > 0 and not bool(active.any()):
+                break
+            new_lam, new_last = lam, last_error
+            if lm:
+                vals, b, _ = system_values(g, lam, prior_weight)
+                dx = solve(vals, b)
+                trial = apply_update(g, dx)
+                error = global_error(trial)
+                # NaN-safe reject, and the trial error recorded
+                # unconditionally, as in make_optimize
+                reject = ~(error <= last_error)
+                new_g = {f: select(reject, getattr(g, f), getattr(trial, f))
+                         for f in _NODE_FIELDS}
+                new_lam = torch.where(reject, lam * 2.0, lam / 2.0)
+                new_errors = put(errors, it + 1, error)
+                new_last = torch.where(torch.isnan(error), last_error, error)
+            else:
+                vals, b, chi2 = system_values(g, 0.0, prior_weight)
+                new_errors = put(errors, it, chi2)
+                dx = solve(vals, b)
+                trial = apply_update(g, dx)
+                new_g = {f: getattr(trial, f) for f in _NODE_FIELDS}
+            g = g.replace(**{f: select(active, v, getattr(g, f))
+                             for f, v in new_g.items()})
+            lam = select(active, new_lam, lam)
+            last_error = select(active, new_last, last_error)
+            errors = select(active, new_errors, errors)
+            norm_dx = select(active, torch.linalg.vector_norm(dx, dim=-1),
+                             norm_dx)
+            it = it + active.long()
+        if not lm:
+            errors = put(errors, it, global_error(g))
         return g, errors, it
 
     return run

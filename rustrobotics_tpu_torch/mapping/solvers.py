@@ -7,13 +7,18 @@
 - ``banded-direct``  : the RCM-banded chain in plain PyTorch
                        (``make_banded_direct``);
 - ``banded-kernel``  : the same chain through the hand-written CUDA
-                       kernels, f32 inside (``make_banded_kernel``, the
-                       counterpart of ``make_banded_pallas``);
+                       kernels (band assembly, factorization,
+                       substitution), f32 inside (``make_banded_kernel``,
+                       the counterpart of ``make_banded_pallas``);
 - ``cg``             : block-Jacobi preconditioned CG on the gather-form
                        ELL operator (``solve_cg``);
 - ``cg-banded``      : the same PCG on the block-banded operator, whose
                        SpMV is the CUDA kernel K3 on the card
                        (``solve_cg_banded``).
+
+The dense and banded solvers take a fleet's leading batch axis on vals
+and b (``pgo.make_optimize_batch``); the host and CG solvers take one
+graph.
 
 Not ported yet: Schur, block cyclic reduction, the mixed-precision solve
 and the native LDL^T solver.
@@ -37,12 +42,13 @@ from rustrobotics_tpu_torch.ops.batched_tri import _cholesky
 def solve_dense(layout: SystemLayout, vals, b):
     """Dense Cholesky solve with symmetric Jacobi scaling: scaling by
     D^-1/2 (D = diag H) brings every diagonal to 1, which keeps the f32
-    factorization of the 1e7 gauge-prior system stable."""
+    factorization of the 1e7 gauge-prior system stable. vals (..., nnz)
+    and b (..., n): a fleet is one batched Cholesky."""
     h = dense_hessian(layout, vals)
-    d = torch.sqrt(torch.diagonal(h).clamp(min=1e-12))
-    hs = h / (d[:, None] * d[None, :])
+    d = torch.sqrt(torch.diagonal(h, dim1=-2, dim2=-1).clamp(min=1e-12))
+    hs = h / (d[..., :, None] * d[..., None, :])
     l = _cholesky(hs)
-    return torch.cholesky_solve((b / d)[:, None], l)[:, 0] / d
+    return torch.cholesky_solve((b / d)[..., None], l)[..., 0] / d
 
 
 def solve_host(layout: SystemLayout, vals, b):

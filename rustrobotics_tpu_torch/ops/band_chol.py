@@ -18,10 +18,19 @@ That chain is ``band_chol_kernels.factorize_plain`` and
 The RCM permutation, the scatter indices and the block size are planned
 once per graph on the host (``build_band_chol``); the symmetric Jacobi
 scaling is applied to the block rows every solve (``_prepare_blocks``).
+The plan also holds the JAX package's sorted-scatter plan (each unique
+band destination one segment of source triplets, in a fixed order): the
+job list of the CUDA band assembly K4/K5
+(``band_assemble_kernels.band_assemble_kernel``), which takes the place
+of the plain scatter on the ``banded-kernel`` path.
+
+Every function takes a fleet's leading batch axis: vals (B, nnz) and b
+(B, n) give block rows (B, nb, kb, 2kb) and x (B, n); the plan is the
+graphs' shared one.
 
 Not ported yet: block cyclic reduction, selected inversion and marginals,
-the triangular-solve ("trsm") substitution mode, and the "sorted" and
-"strips" scatter modes with their plans.
+the triangular-solve ("trsm") substitution mode, and the "strips" scatter
+mode with its plan.
 """
 
 from __future__ import annotations
@@ -53,15 +62,21 @@ class BandCholLayout:
     flat_idx: np.ndarray   # destination into the (nb*kb*2kb,) block-row buf
     pad_rows: np.ndarray   # padded row ids in [n, nb*kb)
     strips_ok: bool        # node-grouped order adopted
+    # sorted-scatter plan: triplets ordered by destination, duplicate
+    # destinations segment-summed into the unique sorted target list
+    sel_sorted: np.ndarray  # sel reordered by flat_idx (stable)
+    seg_sorted: np.ndarray  # nondecreasing segment id per sorted triplet
+    uniq_idx: np.ndarray    # unique destinations (sorted)
+    seg_ptr: np.ndarray     # (len(uniq_idx) + 1,) segment starts in sel_sorted
+
+    _INDEX_FIELDS = ("perm", "inv_perm", "sel", "flat_idx", "pad_rows",
+                     "sel_sorted", "seg_sorted", "uniq_idx", "seg_ptr")
 
     def to(self, device) -> "BandCholLayout":
-        def t(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=device)
-
-        return dataclasses.replace(
-            self, perm=t(self.perm), inv_perm=t(self.inv_perm),
-            sel=t(self.sel), flat_idx=t(self.flat_idx),
-            pad_rows=t(self.pad_rows))
+        return dataclasses.replace(self, **{
+            f: torch.as_tensor(np.asarray(getattr(self, f), np.int64),
+                               device=device)
+            for f in self._INDEX_FIELDS})
 
 
 def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
@@ -115,6 +130,11 @@ def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
     local_col = cs - (j - 1) * kb
     flat_idx = (rs * 2 * kb + local_col).astype(np.int64)
 
+    order = np.argsort(flat_idx, kind="stable")
+    uniq_idx, inv_u = np.unique(flat_idx, return_inverse=True)
+    seg_sorted = inv_u[order].astype(np.int32)
+    seg_ptr = np.searchsorted(seg_sorted, np.arange(len(uniq_idx) + 1))
+
     return BandCholLayout(
         n=n, kb=kb, nb=nb, q=q,
         perm=perm.astype(np.int32), inv_perm=inv.astype(np.int32),
@@ -122,6 +142,10 @@ def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
         flat_idx=flat_idx,
         pad_rows=np.arange(n, nb * kb, dtype=np.int64),
         strips_ok=strips_ok,
+        sel_sorted=sel[order].astype(np.int64),
+        seg_sorted=seg_sorted,
+        uniq_idx=uniq_idx.astype(np.int64),
+        seg_ptr=seg_ptr.astype(np.int64),
     )
 
 
@@ -129,60 +153,72 @@ def _index(a, device):
     return torch.as_tensor(a, dtype=torch.long, device=device)
 
 
-def _prepare_blocks(bl: BandCholLayout, vals):
-    """Scatter triplets into scaled block rows. Returns
-    (r_blocks (nb, kb, 2kb), dinv_p (npad,)): the Jacobi-scaled banded
-    matrix and the scaling vector, in permuted order. Diagonal blocks hold
-    their lower triangle only."""
-    dtype, device = vals.dtype, vals.device
+def scatter_add(bl: BandCholLayout, vals):
+    """The plain band assembly: the kept triplets of vals (..., nnz)
+    scatter-added into flat block rows (..., nb*kb*2kb), unscaled."""
+    flat = vals.new_zeros(vals.shape[:-1] + (bl.nb * bl.kb * 2 * bl.kb,))
+    return flat.index_add_(-1, _index(bl.flat_idx, vals.device),
+                           vals[..., _index(bl.sel, vals.device)])
+
+
+def _prepare_blocks(bl: BandCholLayout, vals, assemble=None):
+    """Assemble triplets into scaled block rows. Returns
+    (r_blocks (..., nb, kb, 2kb), dinv_p (..., npad)): the Jacobi-scaled
+    banded matrix and the scaling vector, in permuted order. Diagonal
+    blocks hold their lower triangle only. ``assemble(bl, vals)`` gives the
+    unscaled flat block rows: the CUDA kernel, or by default the plain
+    ``scatter_add``."""
     kb, nb = bl.kb, bl.nb
     npad = nb * kb
+    batch = vals.shape[:-1]
 
-    flat = torch.zeros(npad * 2 * kb, dtype=dtype, device=device)
-    flat.index_add_(0, _index(bl.flat_idx, device),
-                    vals[_index(bl.sel, device)])
-    r_blocks = flat.view(nb, kb, 2 * kb)
+    flat = (assemble or scatter_add)(bl, vals)
+    r_blocks = flat.view(batch + (nb, kb, 2 * kb))
     # unit diagonal on padded rows so the last block stays SPD (the padded
     # rows are distinct, so a gather-add-put is exact)
     if len(bl.pad_rows):
-        pr = _index(bl.pad_rows, device)
-        r_blocks[pr // kb, pr % kb, kb + pr % kb] += 1.0
+        pr = _index(bl.pad_rows, vals.device)
+        r_blocks[..., pr // kb, pr % kb, kb + pr % kb] += 1.0
 
     # Jacobi scale straight off the block-row diagonal (permuted order)
-    d_p = torch.diagonal(r_blocks[:, :, kb:], dim1=1, dim2=2)  # (nb, kb)
-    dinv_p = torch.rsqrt(d_p.reshape(-1).clamp(min=1e-12))  # (npad,)
-    row_scale = dinv_p.view(nb, kb)
+    d_p = torch.diagonal(r_blocks[..., kb:], dim1=-2, dim2=-1)  # (.., nb, kb)
+    dinv_p = torch.rsqrt(d_p.reshape(batch + (npad,)).clamp(min=1e-12))
+    row_scale = dinv_p.view(batch + (nb, kb))
     # block j holds columns (j-1)*kb .. (j+1)*kb: two shifted views of the
     # zero-extended scale vector give the (nb, 2kb) sliding windows
-    dinv_ext = torch.cat([dinv_p.new_zeros(kb), dinv_p])
+    dinv_ext = torch.cat([dinv_p.new_zeros(batch + (kb,)), dinv_p], -1)
     col_scale = torch.cat(
-        [dinv_ext[:npad].view(nb, kb), dinv_ext[kb:].view(nb, kb)], dim=1)
-    r_blocks = r_blocks * row_scale[:, :, None] * col_scale[:, None, :]
+        [dinv_ext[..., :npad].view(batch + (nb, kb)),
+         dinv_ext[..., kb:].view(batch + (nb, kb))], dim=-1)
+    r_blocks = r_blocks * row_scale[..., None] * col_scale[..., None, :]
     return r_blocks, dinv_p
 
 
 def split_blocks(r_blocks):
-    """(nb, kb, 2kb) block rows -> (dsym, lcoup), each (nb, kb, kb)
-    contiguous: the mirrored diagonal blocks and the coupling blocks, the
-    inputs of the factorization."""
-    kb = r_blocks.shape[1]
-    return _sym(r_blocks[:, :, kb:]), r_blocks[:, :, :kb].contiguous()
+    """(..., nb, kb, 2kb) block rows -> (dsym, lcoup), each (..., nb, kb,
+    kb) contiguous: the mirrored diagonal blocks and the coupling blocks,
+    the inputs of the factorization."""
+    kb = r_blocks.shape[-2]
+    return _sym(r_blocks[..., kb:]), r_blocks[..., :kb].contiguous()
 
 
-def solve_banded(bl: BandCholLayout, vals, b, factorize, substitute):
-    """The banded solve around a factorization and a substitution: RCM
-    permutation, Jacobi scaling and padding in, unscaling and the inverse
-    permutation out. Runs in vals' dtype."""
+def solve_banded(bl: BandCholLayout, vals, b, factorize, substitute,
+                 assemble=None):
+    """The banded solve around an assembly, a factorization and a
+    substitution: RCM permutation, Jacobi scaling and padding in,
+    unscaling and the inverse permutation out. Runs in vals' dtype; vals
+    (..., nnz) and b (..., n) share their batch shape."""
     n, kb, nb = bl.n, bl.kb, bl.nb
     npad = nb * kb
-    r_blocks, dinv_p = _prepare_blocks(bl, vals)
-    bp = b[_index(bl.perm, b.device)]
-    bp = torch.cat([bp, bp.new_zeros(npad - n)])
-    bp = (bp * dinv_p).view(nb, kb)
+    batch = vals.shape[:-1]
+    r_blocks, dinv_p = _prepare_blocks(bl, vals, assemble)
+    bp = b[..., _index(bl.perm, b.device)]
+    bp = torch.cat([bp, bp.new_zeros(batch + (npad - n,))], -1)
+    bp = (bp * dinv_p).view(batch + (nb, kb))
     ldinv, lp = factorize(*split_blocks(r_blocks))
     xs = substitute(ldinv, lp, bp)
-    y = xs.reshape(-1) * dinv_p
-    return y[_index(bl.inv_perm, y.device)]
+    y = xs.reshape(batch + (npad,)) * dinv_p
+    return y[..., _index(bl.inv_perm, y.device)]
 
 
 def solve_band_chol(bl: BandCholLayout, vals, b):

@@ -17,11 +17,16 @@ IEEE f32 with FMA on the CUDA cores.
 
 Each wrapper takes the plain version for a tensor on the CPU, and only
 then; for a CUDA tensor it launches the kernel or raises. ``LAUNCHES``
-counts the kernel launches of each wrapper.
+counts the calls of each wrapper that launch its kernel: one a call,
+whatever the batch.
+
+Both take a fleet's leading batch axis: every kernel of the launch
+sequence gets a grid axis over the graphs, so B chains cost one host loop.
 
 ``solve_band_kernel`` keeps the contract of ``solve_band_pallas``: RCM,
 Jacobi scaling, symmetrization and padding in torch outside the kernels,
-f32 inside, the result cast back to the input dtype.
+f32 inside, the result cast back to the input dtype. Its band assembly is
+the CUDA kernel K4/K5 (``band_assemble_kernels``).
 """
 
 from __future__ import annotations
@@ -39,10 +44,10 @@ LAUNCHES = {"factorize": 0, "substitute": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # (device, dsym, lcoup, ldinv, lp, work, nb, kb, stream)
-    "band_factorize_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
-    # (device, ldinv, lp, bp, y, x, nb, kb, stream)
-    "band_substitute_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    # (device, dsym, lcoup, ldinv, lp, work, nb, kb, batch, stream)
+    "band_factorize_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (device, ldinv, lp, bp, y, x, nb, kb, batch, stream)
+    "band_substitute_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -54,36 +59,49 @@ def _lib():
 
 
 def factorize_plain(dsym, lcoup):
-    """The chain of K1 in plain PyTorch: (dsym, lcoup) (nb, kb, kb) ->
-    (ldinv, lp) (nb, kb, kb), lp[0] = 0."""
-    nb = dsym.shape[0]
+    """The chain of K1 in plain PyTorch: (dsym, lcoup) (..., nb, kb, kb)
+    -> (ldinv, lp) (..., nb, kb, kb), lp[..., 0] = 0."""
+    nb = dsym.shape[-3]
     ldinv = torch.empty_like(dsym)
     lp = torch.zeros_like(dsym)
-    a = dsym[0]
+    a = dsym[..., 0, :, :]
     for j in range(nb):
         if j > 0:
-            lp[j] = lcoup[j] @ ldinv[j - 1].T
-            a = dsym[j] - lp[j] @ lp[j].T
-        ldinv[j] = tril_inv(chol_blocked(a))
+            lp[..., j, :, :] = lcoup[..., j, :, :] @ ldinv[..., j - 1, :, :].mT
+            a = dsym[..., j, :, :] - lp[..., j, :, :] @ lp[..., j, :, :].mT
+        ldinv[..., j, :, :] = tril_inv(chol_blocked(a))
     return ldinv, lp
+
+
+def _mv(m, v):
+    """(..., k, k) @ (..., k) -> (..., k)."""
+    return (m @ v[..., None])[..., 0]
 
 
 def substitute_plain(ldinv, lp, bp):
     """The two sweeps of K2 in plain PyTorch: solve L L^T x = bp through
-    the inverse factors; bp and x are (nb, kb)."""
-    nb = bp.shape[0]
+    the inverse factors; bp and x are (..., nb, kb)."""
+    nb = bp.shape[-2]
     y = torch.empty_like(bp)
     for j in range(nb):
-        rhs = bp[j] if j == 0 else bp[j] - lp[j] @ y[j - 1]
-        y[j] = ldinv[j] @ rhs
+        rhs = bp[..., 0, :] if j == 0 else (
+            bp[..., j, :] - _mv(lp[..., j, :, :], y[..., j - 1, :]))
+        y[..., j, :] = _mv(ldinv[..., j, :, :], rhs)
     x = torch.empty_like(bp)
     for j in reversed(range(nb)):
-        rhs = y[j] if j == nb - 1 else y[j] - lp[j + 1].T @ x[j + 1]
-        x[j] = ldinv[j].T @ rhs
+        rhs = y[..., j, :] if j == nb - 1 else (
+            y[..., j, :] - _mv(lp[..., j + 1, :, :].mT, x[..., j + 1, :]))
+        x[..., j, :] = _mv(ldinv[..., j, :, :].mT, rhs)
     return x
 
 
 # ------------------------------------------------------------ kernel wrappers
+
+
+def _lead(t, ndim):
+    """t with a leading batch axis: a (1, ...) view of an unbatched tensor
+    of ``ndim`` dims."""
+    return t if t.dim() > ndim else t[None]
 
 
 def _check_inputs(*tensors, shapes):
@@ -94,20 +112,23 @@ def _check_inputs(*tensors, shapes):
 
 
 def factorize_kernel(dsym, lcoup):
-    """K1: (dsym, lcoup) f32 (nb, kb, kb) -> (ldinv, lp), lp[0] = 0."""
+    """K1: (dsym, lcoup) f32 (nb, kb, kb), or (B, nb, kb, kb) for B chains
+    in one launch sequence -> (ldinv, lp) of the same shape, lp[..., 0] =
+    0. Graph i of a batch gets the unbatched kernel's result bit for bit."""
     if dsym.device.type == "cpu":
         return factorize_plain(dsym, lcoup)
-    nb, kb = dsym.shape[0], dsym.shape[1]
-    _check_inputs(dsym, lcoup, shapes=[(nb, kb, kb)] * 2)
+    d4, l4 = _lead(dsym, 3), _lead(lcoup, 3)
+    batch, nb, kb = d4.shape[:3]
+    _check_inputs(d4, l4, shapes=[(batch, nb, kb, kb)] * 2)
     ldinv = torch.empty_like(dsym)
     lp = torch.empty_like(dsym)
-    # running block, L's sub-diagonal panels, and a PANEL x kb scratch
-    work = torch.empty(2 * kb * kb + PANEL * kb, dtype=torch.float32,
+    # per graph: running block, L's sub-diagonal panels, PANEL x kb scratch
+    work = torch.empty(batch, 2 * kb * kb + PANEL * kb, dtype=torch.float32,
                        device=dsym.device)
     lib = _lib()
     status = lib.band_factorize_f32(
         dsym.device.index, dsym.data_ptr(), lcoup.data_ptr(),
-        ldinv.data_ptr(), lp.data_ptr(), work.data_ptr(), nb, kb,
+        ldinv.data_ptr(), lp.data_ptr(), work.data_ptr(), nb, kb, batch,
         cuda_lib.stream(dsym))
     cuda_lib.check(lib, status, "band_factorize_f32")
     LAUNCHES["factorize"] += 1
@@ -115,27 +136,34 @@ def factorize_kernel(dsym, lcoup):
 
 
 def substitute_kernel(ldinv, lp, bp):
-    """K2: solve L L^T x = bp through (ldinv, lp); bp f32 (nb, kb)."""
+    """K2: solve L L^T x = bp through (ldinv, lp); bp f32 (nb, kb), or
+    (B, nb, kb) with (B, nb, kb, kb) factors, all B in one launch pair."""
     if bp.device.type == "cpu":
         return substitute_plain(ldinv, lp, bp)
-    nb, kb = bp.shape
-    _check_inputs(ldinv, lp, bp, shapes=[(nb, kb, kb), (nb, kb, kb), (nb, kb)])
+    b3 = _lead(bp, 2)
+    batch, nb, kb = b3.shape
+    _check_inputs(_lead(ldinv, 3), _lead(lp, 3), b3,
+                  shapes=[(batch, nb, kb, kb)] * 2 + [(batch, nb, kb)])
     y = torch.empty_like(bp)
     x = torch.empty_like(bp)
     lib = _lib()
     status = lib.band_substitute_f32(
         bp.device.index, ldinv.data_ptr(), lp.data_ptr(), bp.data_ptr(),
-        y.data_ptr(), x.data_ptr(), nb, kb, cuda_lib.stream(bp))
+        y.data_ptr(), x.data_ptr(), nb, kb, batch, cuda_lib.stream(bp))
     cuda_lib.check(lib, status, "band_substitute_f32")
     LAUNCHES["substitute"] += 1
     return x
 
 
 def solve_band_kernel(bl, vals, b):
-    """Banded solve through K1 and K2, f32 inside, returned in vals'
-    dtype (the contract of the JAX package's ``solve_band_pallas``)."""
+    """Banded solve through K4/K5, K1 and K2, f32 inside, returned in
+    vals' dtype (the contract of the JAX package's ``solve_band_pallas``).
+    vals (..., nnz) and b (..., n): one graph or a fleet."""
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
     from rustrobotics_tpu_torch.ops.band_chol import solve_banded
 
     x = solve_banded(bl, vals.float(), b.float(), factorize_kernel,
-                     substitute_kernel)
+                     substitute_kernel, band_assemble_kernel)
     return x.to(vals.dtype)

@@ -13,8 +13,13 @@ import pytest
 import torch
 
 from rustrobotics_tpu_torch.mapping.assemble import build_layout, system_values
-from rustrobotics_tpu_torch.mapping.pgo import make_optimize
+from rustrobotics_tpu_torch.mapping.pgo import (
+    make_optimize,
+    make_optimize_batch,
+    stack_graphs,
+)
 from rustrobotics_tpu_torch.mapping.synthetic import synthetic_corridor_graph_2d
+from rustrobotics_tpu_torch.ops import band_assemble_kernels as bak
 from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
 from rustrobotics_tpu_torch.ops import banded
 from rustrobotics_tpu_torch.ops import banded_kernels as bmk
@@ -135,3 +140,101 @@ def test_cg_banded_runs_the_kernel(cuda_device, monkeypatch):
     big = err_plain > 1.0
     assert big.sum() >= 2
     torch.testing.assert_close(err_k[big], err_plain[big], rtol=1e-3, atol=0)
+
+
+def _fleet(device, batch=3, num_poses=256):
+    """A corridor graph and jittered copies (f32, numpy seed)."""
+    import numpy as np
+
+    g = synthetic_corridor_graph_2d(num_poses, num_landmarks=4,
+                                    closure_span=32, device=device,
+                                    dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    poses = g.poses2.cpu().numpy()
+    graphs = [g] + [g.replace(poses2=torch.as_tensor(
+        poses + rng.normal(0.0, 0.05, poses.shape), dtype=torch.float32,
+        device=device)) for _ in range(batch - 1)]
+    return graphs, stack_graphs(graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_band_assemble_matches_plain(cuda_device, batched):
+    """K4 (one graph) and K5 (a fleet) against the plain index_add_: each
+    destination within 16 f32 units of the sum of its |contributions|
+    (only the summation order differs; f32 against exact reads 1.3 units
+    on this graph on the CPU), and bit-equal between runs."""
+    graphs, fleet = _fleet(cuda_device)
+    bl = build_band_chol(build_layout(graphs[0])).to(cuda_device)
+    vals = system_values(fleet if batched else graphs[0], 0.01)[0]
+    key = "assemble_batch" if batched else "assemble_b1"
+    before = bak.LAUNCHES[key]
+    got = bak.band_assemble_kernel(bl, vals)
+    again = bak.band_assemble_kernel(bl, vals)
+    torch.cuda.synchronize()
+    assert bak.LAUNCHES[key] == before + 2
+    want = bak.band_assemble_plain(bl, vals)
+    scale = bak.band_assemble_plain(bl, vals.abs())
+    assert got.shape == want.shape
+    assert torch.equal(got, again)
+    assert bool(((got - want).abs() <= 16 * 2.0 ** -24 * scale).all())
+
+
+@pytest.mark.cuda
+def test_band_assemble_rejects_bad_input(cuda_device):
+    graphs, _ = _fleet(cuda_device, batch=1)
+    bl = build_band_chol(build_layout(graphs[0])).to(cuda_device)
+    vals = system_values(graphs[0], 0.0)[0]
+    with pytest.raises(ValueError, match="float32"):
+        bak.band_assemble_kernel(bl, vals.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bak.band_assemble_kernel(bl, torch.stack([vals, vals], 1).T)
+
+
+@pytest.mark.cuda
+def test_batched_kernels_match_per_graph(cuda_device):
+    """K1/K2 over a batch axis: graph i of the batch equals the unbatched
+    kernels on graph i bit for bit, with one launch a call."""
+    dsym, lcoup, bp = _random_band(3 * 3, 256, cuda_device)
+    dsym, lcoup = dsym.view(3, 3, 256, 256), lcoup.view(3, 3, 256, 256)
+    bp = bp.view(3, 3, 256)
+    before = dict(bk.LAUNCHES)
+    ld_b, lp_b = bk.factorize_kernel(dsym, lcoup)
+    x_b = bk.substitute_kernel(ld_b, lp_b, bp)
+    assert bk.LAUNCHES["factorize"] == before["factorize"] + 1
+    assert bk.LAUNCHES["substitute"] == before["substitute"] + 1
+    for i in range(3):
+        ld_1, lp_1 = bk.factorize_kernel(dsym[i].contiguous(),
+                                         lcoup[i].contiguous())
+        assert torch.equal(ld_b[i], ld_1) and torch.equal(lp_b[i], lp_1)
+        assert torch.equal(x_b[i], bk.substitute_kernel(ld_1, lp_1,
+                                                        bp[i].contiguous()))
+
+
+@pytest.mark.cuda
+def test_fleet_runs_the_kernels(cuda_device, monkeypatch):
+    """make_optimize_batch(backend="banded-kernel") launches K5 and one
+    K1 and K2 an iteration for the whole fleet, never the plain scatter,
+    and every row tracks the unbatched banded-kernel run."""
+    from rustrobotics_tpu_torch.ops import band_chol
+
+    graphs, fleet = _fleet(cuda_device)
+    kw = dict(num_iterations=4, backend="banded-kernel", tolerance=0.0)
+    runs = [make_optimize(graphs[0], **kw)(g)[1] for g in graphs]
+
+    def no_plain(*args):
+        raise AssertionError("the plain band scatter ran on the card's path")
+
+    monkeypatch.setattr(band_chol, "scatter_add", no_plain)
+    monkeypatch.setattr(bak, "band_assemble_plain", no_plain)
+    before = {**bk.LAUNCHES, **bak.LAUNCHES}
+    _, errors, it = make_optimize_batch(graphs[0], **kw)(fleet)
+    assert it.tolist() == [4, 4, 4]
+    assert bak.LAUNCHES["assemble_batch"] == before["assemble_batch"] + 4
+    assert bk.LAUNCHES["factorize"] == before["factorize"] + 4
+    assert bk.LAUNCHES["substitute"] == before["substitute"] + 4
+    for i, want in enumerate(runs):
+        big = want > 1.0
+        assert big.sum() >= 2
+        torch.testing.assert_close(errors[i][big], want[big], rtol=1e-2,
+                                   atol=0)
