@@ -52,13 +52,16 @@ Phases; any failure ends the script with a non-zero exit code:
       and one K1 and one K2 launch per fleet iteration, and no plain
       scatter;
 5. times from CUDA events: each kernel, its plain version and a library
-   yardstick, each beside its bound (K3's, K4's and K5's with L2 flushed
-   before each call, as their bounds count every byte through HBM; K3's
-   L2-warm time is printed beside them); the stages of one GN iteration
+   yardstick, each beside its bound, as device time a call with the calls
+   queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
+   in the solve; K3's, K4's and K5's with L2 flushed before each call, as
+   their bounds count every byte through HBM; K3's L2-warm time is
+   printed beside them); the stages of one GN iteration
    of each main path; GN iterations/s end to end for each, and the
    fleet's graph-iterations/s against one graph's;
 6. trace: one GN run of each main path under torch.profiler, device time
-   by kernel and the device's idle share;
+   by kernel and the device's idle share; K1's device launches per
+   factorization and the panel kernel's µs per launch;
 7. one JSON line describing the kernels, then the contract line
    {"ok": true, "device": {...}} last.
 """
@@ -467,15 +470,21 @@ def times(p, gn, g32):
     k2_bytes = 4 * (nb * tri + (nb - 1) * sq + 2 * nb * kb)
     k1_bound, k1_by = bound_ms(k1_bytes, k1_flops)
     k2_bound, k2_by = bound_ms(k2_bytes, k2_flops)
+    # device time per call, the calls queued back to back behind a sleep
+    # kernel so that the host's enqueue time stays out (L2 warm, as in the
+    # solve, where K2 reads the factor K1 just wrote); cholesky_ex is the
+    # library factorization without its host-side error check
     out["factorize"] = dict(
-        ms=cuda_ms(lambda: bk.factorize_kernel(dsym, lcoup)),
-        plain_ms=cuda_ms(lambda: bk.factorize_plain(dsym, lcoup)),
-        library_ms=cuda_ms(lambda: torch.linalg.cholesky(hs)),
+        ms=queued_ms(lambda: bk.factorize_kernel(dsym, lcoup), calls=10),
+        plain_ms=queued_ms(lambda: bk.factorize_plain(dsym, lcoup), calls=10),
+        library_ms=queued_ms(lambda: torch.linalg.cholesky_ex(hs), calls=10),
         bound_ms=k1_bound, bound_by=k1_by)
     out["substitute"] = dict(
-        ms=cuda_ms(lambda: bk.substitute_kernel(ld_p, lp_p, bp)),
-        plain_ms=cuda_ms(lambda: bk.substitute_plain(ld_p, lp_p, bp)),
-        library_ms=cuda_ms(lambda: torch.cholesky_solve(b_dense, l_dense)),
+        ms=queued_ms(lambda: bk.substitute_kernel(ld_p, lp_p, bp), calls=20),
+        plain_ms=queued_ms(lambda: bk.substitute_plain(ld_p, lp_p, bp),
+                           calls=20),
+        library_ms=queued_ms(lambda: torch.cholesky_solve(b_dense, l_dense),
+                             calls=20),
         bound_ms=k2_bound, bound_by=k2_by)
     for key, t, flops, nbytes in (
             ("factorize", out["factorize"], k1_flops, k1_bytes),
@@ -1143,9 +1152,9 @@ def fleet_times(fp, bl, gn_fleet, fleet, gn_one, g32):
 
 
 K12_GROUPS = {"K4 band_assemble": "band_assemble",
-              "K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_f32": "gemm_f32",
-              "K2 band_forward": "band_forward",
-              "K2 band_backward": "band_backward", "other": ""}
+              "K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_nt": "gemm_nt",
+              "K1 trail_offdiag": "trail_offdiag",
+              "K2 band_substitute": "band_substitute", "other": ""}
 FLEET_GROUPS = {("K5" + k[2:] if k.startswith("K4") else k): v
                 for k, v in K12_GROUPS.items()}
 K3_GROUPS = {"K3 banded_matvec": "banded_matvec", "other": ""}
@@ -1162,10 +1171,12 @@ def trace(label, run, groups):
 
     run()
     torch.cuda.synchronize()
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    factorizations = read_counts()["factorize"]
     events = prof.events()
     dev = [e for e in events
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1191,6 +1202,13 @@ def trace(label, run, groups):
     for key, (us, count) in totals.items():
         print(f"[trace] {label}: {key}: {us / 1e3:.4f} ms in {count} "
               f"launches ({us / max(count, 1):.2f} us each)", flush=True)
+    if factorizations:
+        k1 = sum(c for k, (_, c) in totals.items() if k.startswith("K1"))
+        us, count = totals["K1 panel_chol_inv"]
+        print(f"[trace] {label}: K1 device launches per factorization "
+              f"{k1 / factorizations:.2f} ({k1} in {factorizations} calls); "
+              f"panel_chol_inv {us / max(count, 1):.2f} us per launch",
+              flush=True)
 
 
 def main() -> int:
@@ -1246,6 +1264,7 @@ def main() -> int:
              fleet_launches=fleet_launches["factorize"],
              err_measure="max|ldinv_kernel L_plain - I|, corridor-1728 at "
                          "the first LM step's damping",
+             ms_measure="device ms a call, 10 calls queued back to back",
              **timed["factorize"]),
         dict(name="band_substitute_f32", route="cuda", source=src,
              replaces="rustrobotics_tpu/ops/band_chol_pallas.py:307",
@@ -1253,6 +1272,8 @@ def main() -> int:
              fleet_launches=fleet_launches["substitute"],
              err_measure="max|x_kernel - x_plain|, corridor-1728 at the "
                          "first LM step's damping",
+             ms_measure="device ms a call, 20 calls queued back to back "
+                        "(L2 warm)",
              **timed["substitute"]),
         dict(name="banded_matvec_f32", route="cuda",
              source="rustrobotics_tpu_torch/csrc/banded_matvec.cu",

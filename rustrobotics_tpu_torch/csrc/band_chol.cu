@@ -1,5 +1,6 @@
 // Banded inverse-Cholesky factorization (K1) and substitution (K2) for
-// Hopper (sm_90a), IEEE f32 with FMA on the CUDA cores.
+// Hopper (sm_90a), IEEE f32 with FMA on the CUDA cores (no TF32: the 1e7
+// gauge prior of the pose-graph systems needs full f32 products).
 //
 // K1 replaces rustrobotics_tpu/ops/band_chol_pallas.py::factorize_pallas
 // (kernel _factor_kernel, helpers _blocked_chol_inv, _panel_chol_inv,
@@ -8,159 +9,626 @@
 //     D̂_j     = Dsym_j - lp_j lp_j^T
 //     ldinv_j = chol(D̂_j)^-1
 // What bounds it on an H100: the function needs ~2.7 kb^3 FLOP per block
-// row (chol and triangular inverse kb^3/3 each, the product against the
-// triangle ldinv_{j-1} and the symmetric Schur update kb^3 each: 3.7e9 at
-// kb=512, nb=11, 0.055 ms at the 67 TFLOP/s f32 peak) but it is a
-// chain: block row j needs ldinv_{j-1}, and inside a row the 128-wide
-// panels follow one another, each a 128-step scalar pivot recursion. The
-// running (kb, kb) block is 1 MiB at kb=512, far above one CTA's 227 KB of
-// shared memory, so unlike the TPU kernel (block resident in VMEM) it lives
-// in global memory, where the 50 MB L2 keeps it. The design: the host loop
-// below issues, per block row, a tiled f32 GEMM kernel (64x64 tiles) for
-// every product (coupling panel, Schur update, panel solves, trailing
-// updates, off-diagonal inverse panels) and one single-CTA kernel per
-// 128x128 diagonal panel that runs the pivot recursion in shared memory
-// and emits L^-1 of the panel. About 20 launches per block row, all on the
-// caller's stream; the latency of that chain, not the FLOP rate, is what
-// this first version pays.
+// row (3.7e9 at kb=512, nb=11: 0.055 ms at the 67 TFLOP/s f32 peak), but
+// it is a chain of dependent steps, each too small to fill 132 SMs: block
+// row j needs ldinv_{j-1}, and inside a row the 128-wide diagonal panels
+// follow one another. The running (kb, kb) block (1 MiB at kb=512) lives
+// in global memory, where the 50 MB L2 keeps it. So the time is the
+// latency of the chain: launches, barriers and the serial work of the one
+// CTA that factors a diagonal panel. The design, per block row (np =
+// kb/128), 2 + 2 np launches (10 at kb=512, from ~20):
+//   1. gemm_nt: lp_j, skipping the zero k-tiles of the triangle
+//      ldinv_{j-1}; 64x64 tiles (128x128 from kb=1024), a 4-stage
+//      cp.async ring.
+//   2. gemm_nt: D̂_j = Dsym_j - lp_j lp_j^T, lower tiles only, written
+//      straight into the running block (Dsym_j is the beta operand; at
+//      j = 0 it is the copy, and the same launch zeroes lp_0).
+//   3. per diagonal panel i: panel_chol_inv factors and inverts the
+//      128x128 block in registers (8x8 of A and of X = L^-1 a thread),
+//      four 32-column sub-panels, each one warp-level [A11 | I] reduction
+//      with shuffles (no CTA barrier inside) and one register-tiled
+//      rank-32 update: two CTA barriers a sub-panel, 8 a panel (256 in the
+//      shared-memory kernel it replaced).
+//   4. after panel i, one launch, trail_offdiag: CTAs that form L[rest, i]
+//      = A[rest, i] Linv_ii^T inside each 32x32 lower tile of the trailing
+//      block and subtract L L^T there (the diagonal tiles store L and the
+//      row panel's zeros), side by side with CTAs that form panel row i's
+//      Linv[i, :i] = -Linv_ii (L[i, :i] Linv[:i, :i]), both products in
+//      one CTA per 16-column tile, the zero rows of the triangle skipped.
+// The panel kernel is the chain's critical part: each sub-panel's 32
+// dependent steps of shuffles, one reciprocal and FMAs are latency-bound.
+// The earlier panel kernel ran the 128-step recursion in shared memory
+// with two barriers a step; an 8-wide blocked variant of it in shared
+// memory gained only 14%, as each thread's loads and FMAs formed a
+// dependent chain: hence registers and warps. Every product sums over k in
+// ascending order, one FMA chain per output, so a result does not depend
+// on the tiling.
 //
 // A fleet of B same-structure graphs runs as B chains side by side: every
-// kernel of the host loop takes a grid axis over the graphs (blockIdx.z of
-// the GEMM, blockIdx.x of the panel and sweep kernels) and per-graph
-// strides, so the loop issues the same ~250 launches for all B graphs.
-// The per-graph arithmetic is that of B = 1, bit for bit.
+// kernel takes a grid axis over the graphs and per-graph strides, so the
+// host loop issues the same launches for all B. The per-graph arithmetic
+// is that of B = 1, bit for bit (the tile sizes depend on kb alone).
 //
 // K2 replaces ...::substitute_pallas (kernels _fwd_kernel, _bwd_kernel):
 //     y_j = ldinv_j (b_j - lp_j y_{j-1}),      j = 0 .. nb-1
 //     x_j = ldinv_j^T (y_j - lp_{j+1}^T x_{j+1}), j = nb-1 .. 0
 // What bounds it: two chains of nb dependent (kb, kb) GEMVs; the bytes
 // (ldinv's lower triangles and lp_1.., ~1.5 nb kb^2 f32, 16 MB at kb=512,
-// nb=11, ~5 us at 3.35 TB/s) bound it, the FLOPs do not. The design: one CTA per sweep loops over j
-// (the counterpart of the sequential grid), keeps the carry y_{j-1} or
-// x_{j+1} in shared memory and streams each row of the matrices with
-// coalesced loads. One SM cannot pull HBM at the card's rate, so this
-// first version runs far above its bound.
+// nb=11, ~5 us at 3.35 TB/s) bound it, the FLOPs do not; one SM cannot
+// pull them at that rate, and 4 nb - 2 dependent steps each pay a
+// cluster-wide barrier. The design: band_substitute, one launch for both
+// sweeps, one cluster of CLUSTER CTAs per graph, a kernel for each kb (all
+// index arithmetic constant). CTA q owns the index slice [q w, (q+1) w),
+// w = kb / CLUSTER: in the forward sweep its rows of every block, in the
+// backward sweep its columns, so lp^T and ldinv^T are read as row
+// segments; the zero upper triangle of ldinv is skipped. Each CTA keeps
+// the full vector a step reads in shared memory and writes its slice of
+// the result into every CTA's copy through distributed shared memory; one
+// cluster barrier a step, and the next step's first 16-byte loads are in
+// flight across it (issued between the barrier's arrive and wait).
 //
 // Entry points have a plain C interface for ctypes. Each takes the
 // device of its tensors (this library's runtime keeps its own current
 // device, apart from PyTorch's) and returns the cudaError_t of its
 // launches (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <utility>
+
+namespace cg = cooperative_groups;
+
+#define RETURN_IF_ERROR(expr)             \
+  do {                                    \
+    const cudaError_t err_ = (expr);      \
+    if (err_ != cudaSuccess) return err_; \
+  } while (0)
 
 namespace {
 
-constexpr int PANEL = 128;          // diagonal panel of the pivot kernel
-constexpr int TILE = 64;            // GEMM output tile
-constexpr int TK = 16;              // GEMM depth step
-constexpr int GEMM_THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PANEL_THREADS = 512;
-constexpr int SUB_THREADS = 1024;   // multiple of PANEL and of 32
-constexpr size_t PANEL_SMEM = (2 * PANEL * PANEL + PANEL) * sizeof(float);
-constexpr int MAX_BATCH = 65535;    // the GEMM's grid z limit
+constexpr int PANEL = 128;        // diagonal panel width; kb is a multiple
+constexpr int SUB = 32;           // sub-panel width of the panel kernel
+constexpr int NSUB = PANEL / SUB;
+constexpr int PANEL_THREADS = 256;
+constexpr int GEMM_THREADS = 256; // 16 x 16 threads
+constexpr int BK = 32;            // GEMM depth step
+constexpr int GEMM_STAGES = 4;    // cp.async ring of the GEMM
+constexpr int GLD = BK + 4;       // 144-byte rows: conflict-free float4 reads
+constexpr int TT = 32;            // trail_update tile
+constexpr int OT = 16;            // offdiag_inv column tile
+constexpr int CLUSTER = 8;        // K2's CTAs a graph (the portable size)
+constexpr int SUB_THREADS = 512;  // K2's threads a CTA: 16 warps
+constexpr int PF = 8;             // K2's 16-byte loads a thread a round
+constexpr int MAX_NF = 16;        // K2 takes kb up to 128 MAX_NF
+constexpr int MAX_BATCH = 65535;  // grid y limit
 
-// C[M, N] = alpha * A[M, K] op(B) + beta * C, row-major with leading
-// dimensions; op(B) = B^T with B stored (N, K) when TRANS_B, else B stored
-// (K, N). M and N are multiples of TILE, K of TK. C must not overlap A or
-// B. With beta == 0, C is not read. Graph blockIdx.z reads and writes at
-// blockIdx.z times the strides sa, sb, sc.
-template <bool TRANS_B>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+template <int BM>
+constexpr size_t gemm_smem() {
+  return 2 * (size_t)GEMM_STAGES * BM * GLD * sizeof(float);
+}
+
+// C[m, n] = D[m, n] - A[m, :] B[n, :]^T (SUB_D) or A[m, :] B[n, :]^T,
+// every matrix (kb, kb) row-major at graph stride sa, sb, sd, sc (graph
+// blockIdx.y). BM x BM tiles, (BM/16)^2 outputs a thread, a ring of
+// GEMM_STAGES BK-deep tiles of A and B filled by cp.async (dynamic shared
+// memory, gemm_smem<BM>() bytes). LOWER: only the
+// tiles with tm >= tn (blockIdx.x enumerates them), and z, if not null,
+// gets zeros in tile (tm, tn) and its mirror. TRI_B: B is lower
+// triangular, so the k-range of a tile ends at n0 + BM. k runs from 0 to
+// the tile's end (at most K) in ascending order.
+template <int BM, bool LOWER, bool TRI_B, bool SUB_D>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32(int K, float alpha, const float* __restrict__ A, int lda, size_t sa,
-         const float* __restrict__ B, int ldb, size_t sb, float beta,
-         float* __restrict__ C, int ldc, size_t sc) {
-  A += blockIdx.z * sa;
-  B += blockIdx.z * sb;
-  C += blockIdx.z * sc;
-  __shared__ float As[TK][TILE + 1];
-  __shared__ float Bs[TK][TILE + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int l = tid; l < TILE * TK; l += GEMM_THREADS) {
-      const int r = l / TK, kk = l % TK;
-      As[kk][r] = A[(size_t)(m0 + r) * lda + k0 + kk];
-      if constexpr (TRANS_B) {
-        Bs[kk][r] = B[(size_t)(n0 + r) * ldb + k0 + kk];
-      } else {
-        const int kr = l / TILE, c = l % TILE;
-        Bs[kr][c] = B[(size_t)(k0 + kr) * ldb + n0 + c];
+gemm_nt(int kb, int K, const float* __restrict__ A, size_t sa,
+        const float* __restrict__ B, size_t sb, const float* __restrict__ D,
+        size_t sd, float* __restrict__ C, size_t sc, float* __restrict__ z,
+        size_t sz) {
+  constexpr int TM = BM / 16;
+  extern __shared__ __align__(16) float gsm[];
+  float* As = gsm;                          // GEMM_STAGES x BM x GLD
+  float* Bs = gsm + GEMM_STAGES * BM * GLD;
+  const size_t g = blockIdx.y;
+  A += g * sa;
+  B += g * sb;
+  C += g * sc;
+  int tm, tn;
+  if (LOWER) {
+    int t = blockIdx.x;
+    tm = 0;
+    while (t > tm) t -= ++tm;
+    tn = t;
+  } else {
+    const int nt = kb / BM;
+    tm = blockIdx.x / nt;
+    tn = blockIdx.x % nt;
+  }
+  const int m0 = tm * BM, n0 = tn * BM;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int nk = (TRI_B ? min(K, n0 + BM) : K) / BK;  // kb is a multiple of BK
+  auto load = [&](int stage, int k0) {
+#pragma unroll
+    for (int u = 0; u < BM * BK / 4 / GEMM_THREADS; ++u) {
+      const int l = tid + u * GEMM_THREADS;
+      const int r = l / (BK / 4), c = (l % (BK / 4)) * 4;
+      cp_async16(As + (stage * BM + r) * GLD + c,
+                 A + (size_t)(m0 + r) * kb + k0 + c);
+      cp_async16(Bs + (stage * BM + r) * GLD + c,
+                 B + (size_t)(n0 + r) * kb + k0 + c);
+    }
+  };
+  float acc[TM][TM] = {};
+#pragma unroll
+  for (int t = 0; t < GEMM_STAGES - 1; ++t) {
+    if (t < nk) load(t, t * BK);
+    cp_async_commit();
+  }
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<GEMM_STAGES - 2>();
+    // also orders the reads of the stage loaded next (tile t - 1) first
+    __syncthreads();
+    if (t + GEMM_STAGES - 1 < nk)
+      load((t + GEMM_STAGES - 1) % GEMM_STAGES, (t + GEMM_STAGES - 1) * BK);
+    cp_async_commit();
+    const float* as = As + (t % GEMM_STAGES) * BM * GLD;
+    const float* bs = Bs + (t % GEMM_STAGES) * BM * GLD;
+#pragma unroll
+    for (int k4 = 0; k4 < BK; k4 += 4) {
+      float4 a[TM], b[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * GLD + k4);
+#pragma unroll
+      for (int j = 0; j < TM; ++j)
+        b[j] = *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * GLD + k4);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j) {
+          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+        }
+    }
+  }
+  if (SUB_D) D += g * sd;
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const size_t o = (size_t)(m0 + ty + 16 * i) * kb + n0 + tx + 16 * j;
+      C[o] = SUB_D ? D[o] - acc[i][j] : acc[i][j];
+    }
+  if (LOWER && z != nullptr) {
+    z += g * sz;
+    for (int l = tid; l < BM * BM; l += GEMM_THREADS) {
+      const int r = l / BM, c = l % BM;
+      z[(size_t)(m0 + r) * kb + n0 + c] = 0.f;
+      z[(size_t)(n0 + r) * kb + m0 + c] = 0.f;
+    }
+  }
+}
+
+// Shared buffers of panel_chol_inv, in floats.
+constexpr int LDA = SUB + 4;  // 144-byte rows: 16-byte broadcast reads
+constexpr int PB_ACOL = PANEL * LDA;          // A[:, c0:c0+SUB]
+constexpr int PB_XST = PANEL * LDA;           // X[S, :]^T
+constexpr int PB_LC = PANEL * LDA;            // L21
+constexpr int PB_XN = PANEL * LDA;            // (Linv11 X[S, :])^T
+constexpr size_t PANEL_SMEM =
+    (size_t)(PB_ACOL + PB_XST + PB_LC + PB_XN) * sizeof(float);
+constexpr int FACTOR_WARPS = 4;  // each factors [A11 | I], then a share of the dots
+
+// 1/d as the hardware reciprocal refined by one Newton step (FMAs):
+// within an ulp of the IEEE quotient for the positive normal pivots of an
+// SPD block, and without the IEEE division's special-case branch, which
+// sat on the panel's chain of dependent steps.
+__device__ __forceinline__ float recip(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.f), r);
+}
+
+// acc -= a . b, in order
+__device__ __forceinline__ void fma4(float& acc, float4 a, float4 b) {
+  acc = fmaf(-a.x, b.x, acc);
+  acc = fmaf(-a.y, b.y, acc);
+  acc = fmaf(-a.z, b.z, acc);
+  acc = fmaf(-a.w, b.w, acc);
+}
+
+// The rank-32 update of sub-panel S on thread (tr, tc)'s registers:
+// A[R, R] -= L21 L21^T on the lower 32-blocks and X[R, :c0+32] -= L21 XS'
+// for the rows R below the sub-panel (i / 2 > S). lc[r * LDA + k] =
+// L21[r, k] and xnt[c * LDA + k] = XS'[k, c] are read four k at a time
+// (16-byte reads); each output still sums k in order. S is a template
+// argument, so only the FMAs of live blocks are issued.
+template <int S>
+__device__ __forceinline__ void rank32_update(float (&A)[8][8],
+                                              float (&X)[8][8],
+                                              const float* lc,
+                                              const float* xnt, int tr,
+                                              int tc) {
+#pragma unroll 2
+  for (int k = 0; k < SUB; k += 4) {
+    float4 lr[8], lcv[8], xv[8];
+#pragma unroll
+    for (int i = 2 * (S + 1); i < 8; ++i)
+      lr[i] = *reinterpret_cast<const float4*>(lc + (tr + 16 * i) * LDA + k);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j / 2 > S)
+        lcv[j] = *reinterpret_cast<const float4*>(lc + (tc + 16 * j) * LDA + k);
+      if (j / 2 <= S)
+        xv[j] = *reinterpret_cast<const float4*>(xnt + (tc + 16 * j) * LDA + k);
+    }
+#pragma unroll
+    for (int i = 2 * (S + 1); i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j / 2 > S && j / 2 <= i / 2) fma4(A[i][j], lr[i], lcv[j]);
+        if (j / 2 <= S) fma4(X[i][j], lr[i], xv[j]);
       }
+  }
+}
+
+// One CTA a graph (blockIdx.x): the (PANEL, PANEL) SPD block at a (its
+// lower 32-blocks read) -> its inverse Cholesky factor at linv, zeros
+// above the diagonal. Thread (tr, tc) keeps A and X = L^-1 at rows tr + 16 i
+// and columns tc + 16 j (i, j < 8) in registers. Sub-panel s (columns
+// c0 = 32 s ..): its column block of A and its rows of X go to shared
+// memory; barrier; FACTOR_WARPS warps each reduce [A11 | I] (32 x 32,
+// lane = row, row k read through shuffles) to Linv11 and form their share
+// of L21 = A21 Linv11^T and XS' = Linv11 X[S, :] (16-byte broadcast reads);
+// barrier; every thread applies the rank-32 update A22 -= L21 L21^T (lower
+// 32-blocks only) and X[R, :] -= L21 XS' to its registers and takes XS'
+// for its rows of S.
+__global__ void __launch_bounds__(PANEL_THREADS, 1)
+panel_chol_inv(int kb, const float* __restrict__ a, size_t sa,
+               float* __restrict__ linv, size_t sl) {
+  a += blockIdx.x * sa;
+  linv += blockIdx.x * sl;
+  extern __shared__ __align__(16) float smem[];
+  float* acol = smem;                  // acol[r * LDA + p] = A[r, c0 + p]
+  float* xst = acol + PB_ACOL;         // xst[c * LDA + p] = X[c0 + p, c]
+  float* lc = xst + PB_XST;            // lc[r * LDA + p] = L21[r, p]
+  float* xnt = lc + PB_LC;             // xnt[c * LDA + p] = XS'[p, c]
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const int warp = tid / 32, lane = tid % 32;
+  float A[8][8], X[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = tr + 16 * i, c = tc + 16 * j;
+      A[i][j] = (j / 2 <= i / 2) ? a[(size_t)r * kb + c] : 0.f;
+      X[i][j] = (r == c) ? 1.f : 0.f;
+    }
+  for (int s = 0; s < NSUB; ++s) {
+    const int c0 = s * SUB;
+    // row and column 32-blocks of register (i, j) are i / 2 and j / 2
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = tr + 16 * i, c = tc + 16 * j;
+        if (i / 2 >= s && j / 2 == s) acol[r * LDA + c - c0] = A[i][j];
+        if (i / 2 == s && j / 2 <= s) xst[c * LDA + r - c0] = X[i][j];
+      }
+    __syncthreads();
+    if (warp < FACTOR_WARPS) {
+      float la[SUB], lx[SUB];
+#pragma unroll
+      for (int p = 0; p < SUB; ++p) {
+        la[p] = (p <= lane) ? acol[(c0 + lane) * LDA + p]
+                            : acol[(c0 + p) * LDA + lane];
+        lx[p] = (p == lane) ? 1.f : 0.f;
+      }
+      // Row k is scaled by 1/sqrt(pivot) only at the end: the rows below
+      // take l_r l_c = A[r, k] A[k, c] / A[k, k] from its unscaled values.
+      // Two steps k, k + 1 at a time: rows k and k + 1 are read through
+      // shuffles as they stand before step k, and every lane forms row
+      // k + 1 after step k itself (the same FMAs lane k + 1 would do), so
+      // a pair pays one shuffle latency. A step is one reciprocal that
+      // every lane takes alike and selects: no branch on the chain.
+      float piv = 1.f;
+#pragma unroll
+      for (int k = 0; k < SUB; k += 2) {
+        float r0[SUB], r1[SUB];
+        const float d0 = __shfl_sync(0xffffffffu, la[k], k);
+        const float a10 = __shfl_sync(0xffffffffu, la[k], k + 1);
+#pragma unroll
+        for (int p = 0; p < SUB; ++p) {
+          r0[p] = __shfl_sync(0xffffffffu, p > k ? la[p] : lx[p], k);
+          r1[p] = __shfl_sync(0xffffffffu, p > k ? la[p] : lx[p], k + 1);
+        }
+        const float rd0 = recip(d0);
+        const float l10 = a10 * rd0;
+#pragma unroll
+        for (int p = 0; p < SUB; ++p) r1[p] = fmaf(-l10, r0[p], r1[p]);
+        const float d1 = r1[k + 1];
+        const float rd1 = recip(d1);
+        piv = (lane == k) ? d0 : (lane == k + 1) ? d1 : piv;
+        const float lr0 = (lane > k) ? la[k] * rd0 : 0.f;
+#pragma unroll
+        for (int p = 0; p < SUB; ++p) {
+          if (p > k)
+            la[p] = fmaf(-lr0, r0[p], la[p]);
+          else
+            lx[p] = fmaf(-lr0, r0[p], lx[p]);
+        }
+        const float lr1 = (lane > k + 1) ? la[k + 1] * rd1 : 0.f;
+#pragma unroll
+        for (int p = 0; p < SUB; ++p) {
+          if (p > k + 1)
+            la[p] = fmaf(-lr1, r1[p], la[p]);
+          else if (p <= k)
+            lx[p] = fmaf(-lr1, r1[p], lx[p]);
+          else  // X[k + 1, k + 1] is still 1
+            lx[p] = fmaf(-lr1, 1.f, lx[p]);
+        }
+      }
+      const float inv_own = 1.f / sqrtf(piv);
+#pragma unroll
+      for (int p = 0; p < SUB; ++p) lx[p] *= inv_own;
+      // lane q holds row q of Linv11 in lx (zeros above the diagonal)
+      auto dot = [&](const float* v) {
+        float acc = 0.f;
+#pragma unroll
+        for (int p = 0; p < SUB; p += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(v + p);
+          acc = fmaf(x.x, lx[p], acc);
+          acc = fmaf(x.y, lx[p + 1], acc);
+          acc = fmaf(x.z, lx[p + 2], acc);
+          acc = fmaf(x.w, lx[p + 3], acc);
+        }
+        return acc;
+      };
+#pragma unroll 4
+      for (int r = c0 + SUB + warp; r < PANEL; r += FACTOR_WARPS)
+        lc[r * LDA + lane] = dot(acol + r * LDA);
+#pragma unroll 4
+      for (int c = warp; c < c0 + SUB; c += FACTOR_WARPS)
+        xnt[c * LDA + lane] = dot(xst + c * LDA);
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    switch (s) {
+      case 0: rank32_update<0>(A, X, lc, xnt, tr, tc); break;
+      case 1: rank32_update<1>(A, X, lc, xnt, tr, tc); break;
+      case 2: rank32_update<2>(A, X, lc, xnt, tr, tc); break;
+      default: break;  // the last sub-panel has no rows below it
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (i / 2 == s && j / 2 <= s)
+          X[i][j] = xnt[(tc + 16 * j) * LDA + tr + 16 * i - c0];
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* c = C + (size_t)(m0 + ty + 16 * i) * ldc + n0 + tx + 16 * j;
-      const float v = alpha * acc[i][j];
-      *c = (beta == 0.f) ? v : fmaf(beta, *c, v);
+    for (int j = 0; j < 8; ++j) {
+      const int r = tr + 16 * i, c = tc + 16 * j;
+      linv[(size_t)r * kb + c] = (c <= r) ? X[i][j] : 0.f;
     }
 }
 
-// One CTA: the (PANEL, PANEL) SPD block at a_g (lower triangle read and
-// mirrored) -> its inverse Cholesky factor, lower triangular with zeros
-// above the diagonal, at linv_g. Right-looking: pivot step j takes column
-// j of L (from row j: the trailing block is kept symmetric, and a row is a
-// conflict-free read), scales row j of X, then applies the rank-1 update
-// to the trailing block and eliminates column j from the rows of X below,
-// so X = L^-1 is built as [L | I] is reduced. Two barriers a step. CTA
-// blockIdx.x takes graph blockIdx.x, at strides sa and sl.
-__global__ void __launch_bounds__(PANEL_THREADS)
-panel_chol_inv(const float* __restrict__ a_g, int lda, size_t sa,
-               float* __restrict__ linv_g, int ldl, size_t sl) {
-  a_g += blockIdx.x * sa;
-  linv_g += blockIdx.x * sl;
-  extern __shared__ float smem[];
-  float* a = smem;                    // trailing block, PANEL x PANEL
-  float* x = smem + PANEL * PANEL;    // L^-1 under construction
-  float* lcol = x + PANEL * PANEL;    // column j of L (0 above j)
-  const int tid = threadIdx.x;
-  for (int l = tid; l < PANEL * PANEL; l += PANEL_THREADS) {
-    const int r = l / PANEL, c = l % PANEL;
-    a[l] = (c <= r) ? a_g[(size_t)r * lda + c] : a_g[(size_t)c * lda + r];
-    x[l] = (r == c) ? 1.f : 0.f;
+constexpr int LDK = PANEL + 4;  // k-major rows of 128 columns
+constexpr int LDT = TT + 4;     // k-major rows of a TT-row strip
+constexpr size_t TRAIL_SMEM =
+    (size_t)(PANEL * LDK + 4 * PANEL * LDT) * sizeof(float);
+
+// dst[c * ld + r] = src[r * kb + c] for ROWS x PANEL floats (a transposed
+// copy), by a CTA of 256 threads: 16-byte loads, lanes on consecutive
+// rows, all of a thread's loads issued before its stores.
+template <int ROWS>
+__device__ __forceinline__ void stage_cols(float* dst, int ld,
+                                           const float* __restrict__ src,
+                                           int kb) {
+  constexpr int N = ROWS * PANEL / 4 / 256;
+  float4 v[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int l = threadIdx.x + 256 * u;
+    v[u] = *reinterpret_cast<const float4*>(src + (size_t)(l % ROWS) * kb +
+                                            (l / ROWS) * 4);
   }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int l = threadIdx.x + 256 * u;
+    float* d = dst + (l / ROWS) * 4 * ld + l % ROWS;
+    d[0] = v[u].x;
+    d[ld] = v[u].y;
+    d[2 * ld] = v[u].z;
+    d[3 * ld] = v[u].w;
+  }
+}
+
+// Diagonal panel at column o: for lower tile (tm, tn) (number t) of the
+// TT x TT tiles of the trailing block a[r0:, r0:], r0 = o + PANEL: the
+// strips L_m = a[rows m, o:o+PANEL] Linv_ii^T (and L_n),
+// then a[m, n] -= L_m L_n^T. Diagonal tiles store L_m in lbuf. Operands
+// are held k-major in shared memory for 16-byte reads. Warp w forms
+// columns 32 (w % 4) .. of the strips, lane 4 x 4 outputs of each; Linv_ii
+// is lower triangular, so the warp's k-range ends at its columns' end.
+__device__ __forceinline__ void trail_tile(int kb, int o, int t,
+                                           float* __restrict__ a,
+                                           float* __restrict__ linv,
+                                           float* __restrict__ lbuf,
+                                           float* smem) {
+  float* lt = smem;                  // Linv_ii^T: lt[k * LDK + c] = Linv[c, k]
+  float* at = lt + PANEL * LDK;      // strips m, n of a, k-major: 2 x PANEL x LDT
+  float* ltt = at + 2 * PANEL * LDT; // strips of L, k-major
+  int tm = 0;
+  while (t > tm) t -= ++tm;
+  const int tn = t, r0 = o + PANEL;
+  const int rows[2] = {r0 + tm * TT, r0 + tn * TT};
+  const int ns = (tm == tn) ? 1 : 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  stage_cols<PANEL>(lt, LDK, linv + (size_t)o * kb + o, kb);
+  for (int s = 0; s < ns; ++s)
+    stage_cols<TT>(at + s * PANEL * LDT, LDT, a + (size_t)rows[s] * kb + o, kb);
   __syncthreads();
-  for (int j = 0; j < PANEL; ++j) {
-    const float piv = sqrtf(a[j * PANEL + j]);
-    if (tid < PANEL) {
-      lcol[tid] = (tid >= j) ? a[j * PANEL + tid] / piv : 0.f;
-      if (tid <= j) x[j * PANEL + tid] /= piv;
-    }
-    __syncthreads();
-    const int rows = PANEL - 1 - j;
-    for (int l = tid; l < rows * PANEL; l += PANEL_THREADS) {
-      const int r = j + 1 + l / PANEL, c = l % PANEL;
-      if (c > j) {
-        a[r * PANEL + c] = fmaf(-lcol[r], lcol[c], a[r * PANEL + c]);
-      } else {
-        x[r * PANEL + c] = fmaf(-lcol[r], x[j * PANEL + c], x[r * PANEL + c]);
+  {
+    const int rr = (warp / 4) * 16 + (lane / 8) * 4;   // 4 strip rows
+    const int cc = (warp % 4) * 32 + (lane % 8) * 4;   // 4 columns of L
+    const int kend = (warp % 4) * 32 + 32;
+    float acc[2][4][4] = {};
+    for (int k = 0; k < kend; ++k) {
+      const float4 l = *reinterpret_cast<const float4*>(lt + k * LDK + cc);
+      const float lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s == ns) break;
+        const float4 v =
+            *reinterpret_cast<const float4*>(at + (s * PANEL + k) * LDT + rr);
+        const float av[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[s][i][q] = fmaf(av[i], lv[q], acc[s][i][q]);
       }
     }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      if (s == ns) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float4*>(ltt + (s * PANEL + cc + q) * LDT + rr) =
+            make_float4(acc[s][0][q], acc[s][1][q], acc[s][2][q], acc[s][3][q]);
+    }
+  }
+  __syncthreads();
+  if (ns == 1) {
+    for (int l = tid; l < TT * PANEL; l += 256)
+      lbuf[(size_t)(rows[0] + l / PANEL) * kb + o + l % PANEL] =
+          ltt[(l % PANEL) * LDT + l / PANEL];
+    // the row panel's zeros above the diagonal, in this tile's columns
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int l = tid; l < PANEL * TT / 4; l += 256)
+      *reinterpret_cast<float4*>(linv + (size_t)(o + l / (TT / 4)) * kb +
+                                 rows[0] + 4 * (l % (TT / 4))) = zero;
+  }
+  const float* lm = ltt;
+  const float* ln = ltt + (ns - 1) * PANEL * LDT;
+  const int ur = (tid / 16) * 2, uc = (tid % 16) * 2;  // 2 x 2 outputs
+  float acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      acc[i][q] = a[(size_t)(rows[0] + ur + i) * kb + rows[1] + uc + q];
+#pragma unroll 8
+  for (int k = 0; k < PANEL; ++k) {
+    const float2 x = *reinterpret_cast<const float2*>(lm + k * LDT + ur);
+    const float2 y = *reinterpret_cast<const float2*>(ln + k * LDT + uc);
+    acc[0][0] = fmaf(-x.x, y.x, acc[0][0]);
+    acc[0][1] = fmaf(-x.x, y.y, acc[0][1]);
+    acc[1][0] = fmaf(-x.y, y.x, acc[1][0]);
+    acc[1][1] = fmaf(-x.y, y.y, acc[1][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      a[(size_t)(rows[0] + ur + i) * kb + rows[1] + uc + q] = acc[i][q];
+}
+
+constexpr size_t OFFDIAG_SMEM =
+    (size_t)(PANEL * LDK + 2 * PANEL * OT) * sizeof(float);
+
+// Panel row k of ldinv_j (rows o = k PANEL), column tile ct of width OT:
+// T = L[o:o+PANEL, c0:o] Linv[c0:o, c0:c0+OT]
+// (the triangle Linv[:o, :o] is zero above row c0 in these columns), in
+// chunks of PANEL columns of L, then Linv[o:o+PANEL, c0:c0+OT] = -Linv_kk
+// T, the zero upper triangle of Linv_kk skipped. L's chunk and Linv_kk are
+// held k-major; thread: rows rr .. rr+3, columns cc, cc+1.
+__device__ __forceinline__ void offdiag_tile(int kb, int o, int ct,
+                                             float* __restrict__ linv,
+                                             const float* __restrict__ lbuf,
+                                             float* smem) {
+  float* lt = smem;                 // PANEL x LDK: L's chunk, then Linv_kk
+  float* bch = lt + PANEL * LDK;    // PANEL x OT: a chunk of Linv
+  float* ts = bch + PANEL * OT;     // PANEL x OT: T
+  const int c0 = ct * OT;
+  const int tid = threadIdx.x, rr = (tid / 8) * 4, cc = (tid % 8) * 2;
+  float acc[4][2] = {};
+  auto step = [&](const float* a_col, const float* b_row) {
+    const float4 x = *reinterpret_cast<const float4*>(a_col + rr);
+    const float2 y = *reinterpret_cast<const float2*>(b_row + cc);
+    const float av[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc[i][0] = fmaf(av[i], y.x, acc[i][0]);
+      acc[i][1] = fmaf(av[i], y.y, acc[i][1]);
+    }
+  };
+  for (int p0 = c0 / PANEL * PANEL; p0 < o; p0 += PANEL) {
+    stage_cols<PANEL>(lt, LDK, lbuf + (size_t)o * kb + p0, kb);
+    for (int l = tid; l < PANEL * OT; l += 256)
+      bch[l] = linv[(size_t)(p0 + l / OT) * kb + c0 + l % OT];
+    __syncthreads();
+    // rows of the chunk above c0 are zero in these columns: start at c0
+#pragma unroll 4
+    for (int p = max(c0 - p0, 0); p < PANEL; ++p)
+      step(lt + p * LDK, bch + p * OT);
     __syncthreads();
   }
-  for (int l = tid; l < PANEL * PANEL; l += PANEL_THREADS) {
-    linv_g[(size_t)(l / PANEL) * ldl + l % PANEL] = x[l];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ts[(rr + i) * OT + cc] = acc[i][0];
+    ts[(rr + i) * OT + cc + 1] = acc[i][1];
+    acc[i][0] = acc[i][1] = 0.f;
   }
+  stage_cols<PANEL>(lt, LDK, linv + (size_t)o * kb + o, kb);
+  __syncthreads();
+  // Linv_kk[r, p] = 0 for p > r: the warp's rows end at 16 warp + 15
+  const int pend = (tid / 32) * 16 + 16;
+#pragma unroll 4
+  for (int p = 0; p < pend; ++p) step(lt + p * LDK, ts + p * OT);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* out = linv + (size_t)(o + rr + i) * kb + c0 + cc;
+    out[0] = -acc[i][0];
+    out[1] = -acc[i][1];
+  }
+}
+
+// The launch after diagonal panel i (at column o), graph blockIdx.y: CTAs
+// blockIdx.x < n_trail take the lower tiles of the trailing update
+// (trail_tile), the others the column tiles of panel row i's off-diagonal
+// inverse (offdiag_tile, i >= 1). The two read what earlier launches wrote
+// and write disjoint parts of a, lbuf and linv, so they run side by side.
+constexpr size_t TRAIL_OFFDIAG_SMEM =
+    TRAIL_SMEM > OFFDIAG_SMEM ? TRAIL_SMEM : OFFDIAG_SMEM;
+__global__ void __launch_bounds__(256, 1)
+trail_offdiag(int kb, int o, int n_trail, float* __restrict__ a, size_t sa,
+              float* __restrict__ linv, size_t sl, float* __restrict__ lbuf,
+              size_t sw) {
+  extern __shared__ __align__(16) float smem[];
+  const size_t g = blockIdx.y;
+  if ((int)blockIdx.x < n_trail)
+    trail_tile(kb, o, blockIdx.x, a + g * sa, linv + g * sl, lbuf + g * sw,
+               smem);
+  else
+    offdiag_tile(kb, o, blockIdx.x - n_trail, linv + g * sl, lbuf + g * sw,
+                 smem);
 }
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -169,117 +637,333 @@ __device__ __forceinline__ float warp_sum(float s) {
   return s;
 }
 
-// res[r] = sum_c m[r, c] v[c], r < kb: a warp per row, lanes along the row
-// (coalesced). Ends with a barrier.
-__device__ void gemv(const float* __restrict__ m, const float* v, float* res,
-                     int kb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarp = blockDim.x >> 5;
-  for (int r = warp; r < kb; r += nwarp) {
-    const float* row = m + (size_t)r * kb;
-    float s = 0.f;
-    for (int c = lane; c < kb; c += 32) s = fmaf(row[c], v[c], s);
-    s = warp_sum(s);
-    if (lane == 0) res[r] = s;
-  }
-  __syncthreads();
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
 }
 
-// res[c] = sum_r m[r, c] v[r], c < kb: columns in chunks of PANEL, the rows
-// split over blockDim / PANEL groups (a warp reads 32 consecutive floats of
-// one row), partial sums reduced through `part`. Ends with a barrier.
-__device__ void gemv_t(const float* __restrict__ m, const float* v, float* part,
-                       float* res, int kb) {
-  const int groups = blockDim.x / PANEL;
-  const int g = threadIdx.x / PANEL, cl = threadIdx.x % PANEL;
-  for (int c0 = 0; c0 < kb; c0 += PANEL) {
-    float s = 0.f;
-    for (int r = g; r < kb; r += groups)
-      s = fmaf(m[(size_t)r * kb + c0 + cl], v[r], s);
-    part[g * PANEL + cl] = s;
-    __syncthreads();
-    if (g == 0) {
-      float t = 0.f;
-      for (int q = 0; q < groups; ++q) t += part[q * PANEL + cl];
-      res[c0 + cl] = t;
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// K2's geometry at kb = 128 NF. CTA q of a graph's cluster owns the
+// indices [lo, lo + W), lo = q W: the rows of M v, the columns of M^T v.
+// A round is PF 16-byte loads a thread, issued one round ahead of the
+// FMAs that use them.
+template <int NF>
+struct Sub {
+  static constexpr int KB = 128 * NF;
+  static constexpr int W = KB / CLUSTER;  // 16 NF
+  // M v: warp w takes rows lo + w + 16 u (u < NF), lane l the 16-byte
+  // groups l + 32 fc (fc < NF) of a row. Round rd is the rows u = rg R ..
+  // of row group rg = rd / NC and the groups fc = cc CF .. of chunk cc =
+  // rd % NC; its item e is (rg R + e / CF, cc CF + e % CF).
+  static constexpr int CF = NF >= 8 ? 8 : NF >= 3 ? 4 : NF;
+  static constexpr int R = PF / CF;
+  static constexpr int NC = (NF + CF - 1) / CF;
+  static constexpr int ROW_ROUNDS = (NF + R - 1) / R * NC;
+  // M^T v: SEG threads a row segment (16-byte groups f), G row groups;
+  // thread (gi, f) takes rows r0 + gi + G u, round rd the u = rd PF ..
+  static constexpr int SEG = W / 4;
+  static constexpr int G = SUB_THREADS / SEG;
+  static constexpr int COL_ROUNDS = (KB + G * PF - 1) / (G * PF);
+  // threads a column in the reduction of the G partial sums: a power of
+  // two with T W <= SUB_THREADS (T W is then a multiple of 32)
+  static constexpr int T = 32 * W <= SUB_THREADS   ? 32
+                           : 16 * W <= SUB_THREADS ? 16
+                           : 8 * W <= SUB_THREADS  ? 8
+                           : 4 * W <= SUB_THREADS  ? 4
+                                                   : 2;
+};
+
+// Round rd of M v into buf: zeros for the items past the row's end and,
+// when TRI (M lower triangular), for the groups above the diagonal.
+template <int NF, bool TRI>
+__device__ __forceinline__ void rows_load(const float* __restrict__ m, int rd,
+                                          float4 (&buf)[PF], int lo) {
+  using S = Sub<NF>;
+  const int lane = threadIdx.x % 32, row0 = lo + threadIdx.x / 32;
+  const float4* base =
+      reinterpret_cast<const float4*>(m + (size_t)row0 * S::KB) + lane;
+  const int rg = rd / S::NC, cc = rd % S::NC;
+#pragma unroll
+  for (int e = 0; e < PF; ++e) {
+    const int u = rg * S::R + e / S::CF, fc = cc * S::CF + e % S::CF;
+    const bool ok = u < NF && fc < NF &&
+                    (!TRI || 4 * (lane + 32 * fc) <= row0 + 16 * u);
+    buf[e] = ok ? __ldg(base + (size_t)u * 4 * S::KB + 32 * fc)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+template <int NF, bool TRI>
+__device__ __forceinline__ void cols_load(const float* __restrict__ m, int rd,
+                                          float4 (&buf)[PF], int lo) {
+  using S = Sub<NF>;
+  const int gi = threadIdx.x / S::SEG, f = threadIdx.x % S::SEG;
+  const int r0 = (TRI ? lo : 0) + gi;
+  const float4* base =
+      reinterpret_cast<const float4*>(m + (size_t)r0 * S::KB + lo) + f;
+#pragma unroll
+  for (int e = 0; e < PF; ++e) {
+    const int u = rd * PF + e;
+    const bool ok = gi < S::G && r0 + S::G * u < S::KB;
+    buf[e] = ok ? __ldg(base + (size_t)u * S::G * S::KB / 4)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Round rd of M v: the next round's loads into nxt, this round's FMAs on
+// cur (per-item partial sums in s); at the end of a row group each row's
+// sum (items in order, then across the warp) goes, minus from rhs, into
+// dst of every CTA of the cluster, and into out.
+template <int NF, bool TRI>
+__device__ __forceinline__ void rows_round(
+    const cg::cluster_group& cluster, const float* __restrict__ m,
+    const float* rhs, float* out, const float* v, float* dst, int lo, int rd,
+    const float4 (&cur)[PF], float4 (&nxt)[PF], float (&s)[PF]) {
+  using S = Sub<NF>;
+  if (rd + 1 < S::ROW_ROUNDS) rows_load<NF, TRI>(m, rd + 1, nxt, lo);
+  const int lane = threadIdx.x % 32;
+  const float4* v4 = reinterpret_cast<const float4*>(v) + lane;
+  const int rg = rd / S::NC, cc = rd % S::NC;
+#pragma unroll
+  for (int e = 0; e < PF; ++e) {
+    const int fc = cc * S::CF + e % S::CF;
+    if (fc < NF) s[e] = dot4(cur[e], v4[32 * fc], s[e]);
+  }
+  if (cc != S::NC - 1) return;
+#pragma unroll
+  for (int i = 0; i < S::R; ++i) {
+    const int u = rg * S::R + i;
+    if (u >= NF) break;
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < S::CF; ++q) {
+      t += s[i * S::CF + q];
+      s[i * S::CF + q] = 0.f;
     }
-    __syncthreads();
+    t = warp_sum(t);
+    const int row = lo + threadIdx.x / 32 + 16 * u;
+    if (rhs != nullptr) t = rhs[row] - t;
+    if (lane < CLUSTER) cluster.map_shared_rank(dst, lane)[row] = t;
+    if (out != nullptr && lane == 0) out[row] = t;
   }
 }
 
-// Forward sweep, one CTA a graph: y_j = ldinv_j (b_j - lp_j y_{j-1}).
-__global__ void __launch_bounds__(SUB_THREADS)
-band_forward(const float* __restrict__ ldinv, const float* __restrict__ lp,
-             const float* __restrict__ bp, float* __restrict__ y, int nb, int kb) {
-  const size_t gv = blockIdx.x * (size_t)nb * kb, gm = gv * kb;
+template <int NF, bool TRI>
+__device__ __forceinline__ void rows_phase(const cg::cluster_group& cluster,
+                                           const float* __restrict__ m,
+                                           const float* rhs, float* out,
+                                           const float* v, float* dst,
+                                           int lo, float4 (&buf)[2][PF]) {
+  using S = Sub<NF>;
+  float s[PF] = {};
+  for (int rd = 0; rd < S::ROW_ROUNDS; rd += 2) {
+    rows_round<NF, TRI>(cluster, m, rhs, out, v, dst, lo, rd, buf[0], buf[1],
+                        s);
+    if (rd + 1 < S::ROW_ROUNDS)
+      rows_round<NF, TRI>(cluster, m, rhs, out, v, dst, lo, rd + 1, buf[1],
+                          buf[0], s);
+  }
+}
+
+template <int NF, bool TRI>
+__device__ __forceinline__ void cols_round(const float* __restrict__ m,
+                                           const float* v, int lo, int rd,
+                                           const float4 (&cur)[PF],
+                                           float4 (&nxt)[PF], float4& s) {
+  using S = Sub<NF>;
+  if (rd + 1 < S::COL_ROUNDS) cols_load<NF, TRI>(m, rd + 1, nxt, lo);
+  const int gi = threadIdx.x / S::SEG;
+  const int r0 = (TRI ? lo : 0) + gi;
+#pragma unroll
+  for (int e = 0; e < PF; ++e) {
+    const int r = r0 + S::G * (rd * PF + e);
+    if (gi < S::G && r < S::KB) {
+      const float x = v[r];
+      s.x = fmaf(cur[e].x, x, s.x);
+      s.y = fmaf(cur[e].y, x, s.y);
+      s.z = fmaf(cur[e].z, x, s.z);
+      s.w = fmaf(cur[e].w, x, s.w);
+    }
+  }
+}
+
+// M^T v on the CTA's columns; then the G partial sums through part, T
+// threads a column each summing every T-th group in order, a shuffle
+// tree, and the sum, minus from rhs, into dst of every CTA and into out.
+template <int NF, bool TRI>
+__device__ __forceinline__ void cols_phase(const cg::cluster_group& cluster,
+                                           const float* __restrict__ m,
+                                           const float* rhs, float* out,
+                                           const float* v, float* dst,
+                                           float* part, int lo,
+                                           float4 (&buf)[2][PF]) {
+  using S = Sub<NF>;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int r_lo = TRI ? lo : 0;
+  for (int rd = 0; rd < S::COL_ROUNDS && r_lo + S::G * PF * rd < S::KB;
+       rd += 2) {
+    cols_round<NF, TRI>(m, v, lo, rd, buf[0], buf[1], s);
+    if (rd + 1 < S::COL_ROUNDS)
+      cols_round<NF, TRI>(m, v, lo, rd + 1, buf[1], buf[0], s);
+  }
+  const int gi = threadIdx.x / S::SEG, f = threadIdx.x % S::SEG;
+  if (gi < S::G) reinterpret_cast<float4*>(part + gi * S::W)[f] = s;
+  __syncthreads();
+  if (threadIdx.x >= S::T * S::W) return;  // whole warps
+  const int c = threadIdx.x / S::T, h = threadIdx.x % S::T;
+  float t = 0.f;
+#pragma unroll
+  for (int q = h; q < S::G; q += S::T) t += part[q * S::W + c];
+#pragma unroll
+  for (int off = S::T / 2; off > 0; off >>= 1)
+    t += __shfl_xor_sync(0xffffffffu, t, off);
+  if (rhs != nullptr) t = rhs[lo + c] - t;
+#pragma unroll
+  for (int k = h; k < CLUSTER; k += S::T)
+    cluster.map_shared_rank(dst, k)[lo + c] = t;
+  if (out != nullptr && h == 0) out[lo + c] = t;
+}
+
+// K2, both sweeps in one launch: one cluster of CLUSTER CTAs a graph
+// (blockIdx.y). Each CTA keeps the vector a step reads, every index, in
+// shared memory and writes its share of the step's result into every
+// CTA's other vector (distributed shared memory); one cluster barrier a
+// step, with the next step's first round of loads issued between its
+// arrive and its wait. Steps: y_0; t_j = b_j - lp_j y_{j-1}, y_j = ldinv_j
+// t_j; x_{nb-1} = ldinv_{nb-1}^T y_{nb-1}; t_j = y_j - lp_{j+1}^T x_{j+1},
+// x_j = ldinv_j^T t_j.
+template <int NF>
+__global__ void __launch_bounds__(SUB_THREADS, 1)
+band_substitute(const float* __restrict__ ldinv, const float* __restrict__ lp,
+                const float* __restrict__ bp, float* __restrict__ y,
+                float* __restrict__ x, int nb) {
+  using S = Sub<NF>;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const size_t gv = blockIdx.y * (size_t)nb * S::KB, gm = gv * S::KB;
+  const size_t blk = (size_t)S::KB * S::KB;
   ldinv += gm;
   lp += gm;
   bp += gv;
   y += gv;
-  extern __shared__ float sm[];
-  float* carry = sm;       // y_{j-1}, then y_j
-  float* t = sm + kb;      // right-hand side of step j
-  for (int j = 0; j < nb; ++j) {
-    const size_t o = (size_t)j * kb * kb;
-    if (j > 0) gemv(lp + o, carry, t, kb);
-    for (int r = threadIdx.x; r < kb; r += blockDim.x)
-      t[r] = (j > 0) ? bp[(size_t)j * kb + r] - t[r] : bp[r];
-    __syncthreads();
-    gemv(ldinv + o, t, carry, kb);
-    for (int r = threadIdx.x; r < kb; r += blockDim.x)
-      y[(size_t)j * kb + r] = carry[r];
-  }
-}
-
-// Backward sweep, one CTA a graph: x_j = ldinv_j^T (y_j - lp_{j+1}^T
-// x_{j+1}); the lp term is skipped at the last block (lp[nb] is never read).
-__global__ void __launch_bounds__(SUB_THREADS)
-band_backward(const float* __restrict__ ldinv, const float* __restrict__ lp,
-              const float* __restrict__ y, float* __restrict__ x, int nb, int kb) {
-  const size_t gv = blockIdx.x * (size_t)nb * kb, gm = gv * kb;
-  ldinv += gm;
-  lp += gm;
-  y += gv;
   x += gv;
-  extern __shared__ float sm[];
-  float* carry = sm;           // x_{j+1}, then x_j
-  float* t = sm + kb;
-  float* part = sm + 2 * kb;   // SUB_THREADS partial sums
+  extern __shared__ __align__(16) float sm[];
+  float* vec[2] = {sm, sm + S::KB};
+  float* part = sm + 2 * S::KB;  // G x W partial sums
+  const int lo = cluster.block_rank() * S::W;
+  for (int c = threadIdx.x; c < S::KB; c += SUB_THREADS) vec[0][c] = bp[c];
+  float4 buf[2][PF];
+  rows_load<NF, true>(ldinv, 0, buf[0], lo);
+  cluster_arrive();  // b_0 in place, every CTA running before DSMEM
+  cluster_wait();
+  int p = 0;  // step: reads vec[p % 2], writes vec[(p + 1) % 2]
+  for (int j = 0; j < nb; ++j) {
+    if (j > 0) {
+      rows_phase<NF, false>(cluster, lp + j * blk, bp + (size_t)j * S::KB,
+                            nullptr, vec[p % 2], vec[(p + 1) % 2], lo, buf);
+      ++p;
+      cluster_arrive();
+      rows_load<NF, true>(ldinv + j * blk, 0, buf[0], lo);
+      cluster_wait();
+    }
+    rows_phase<NF, true>(cluster, ldinv + j * blk, nullptr,
+                         y + (size_t)j * S::KB, vec[p % 2], vec[(p + 1) % 2],
+                         lo, buf);
+    ++p;
+    cluster_arrive();
+    if (j + 1 < nb)
+      rows_load<NF, false>(lp + (j + 1) * blk, 0, buf[0], lo);
+    else
+      cols_load<NF, true>(ldinv + j * blk, 0, buf[0], lo);
+    cluster_wait();
+  }
   for (int j = nb - 1; j >= 0; --j) {
-    const bool last = (j == nb - 1);
-    if (!last) gemv_t(lp + (size_t)(j + 1) * kb * kb, carry, part, t, kb);
-    for (int r = threadIdx.x; r < kb; r += blockDim.x)
-      t[r] = last ? y[(size_t)j * kb + r] : y[(size_t)j * kb + r] - t[r];
-    __syncthreads();
-    gemv_t(ldinv + (size_t)j * kb * kb, t, part, carry, kb);
-    for (int r = threadIdx.x; r < kb; r += blockDim.x)
-      x[(size_t)j * kb + r] = carry[r];
+    if (j < nb - 1) {
+      // y_j was written by this CTA (its rows are its columns here)
+      cols_phase<NF, false>(cluster, lp + (j + 1) * blk, y + (size_t)j * S::KB,
+                            nullptr, vec[p % 2], vec[(p + 1) % 2], part, lo,
+                            buf);
+      ++p;
+      cluster_arrive();
+      cols_load<NF, true>(ldinv + j * blk, 0, buf[0], lo);
+      cluster_wait();
+    }
+    cols_phase<NF, true>(cluster, ldinv + j * blk, nullptr,
+                         x + (size_t)j * S::KB, vec[p % 2], vec[(p + 1) % 2],
+                         part, lo, buf);
+    ++p;
+    cluster_arrive();
+    if (j > 0) cols_load<NF, false>(lp + j * blk, 0, buf[0], lo);
+    cluster_wait();
   }
 }
 
-// One GEMM per graph of the batch, each operand at its own graph stride.
-struct Batch {
-  cudaStream_t s;
-  int count;
-};
+template <int NF>
+cudaError_t launch_substitute(cudaStream_t s, const float* ldinv,
+                              const float* lp, const float* bp, float* y,
+                              float* x, int nb, int batch) {
+  using S = Sub<NF>;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(CLUSTER, batch);
+  cfg.blockDim = dim3(SUB_THREADS);
+  cfg.dynamicSmemBytes = (2 * S::KB + S::G * S::W) * sizeof(float);
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, band_substitute<NF>, ldinv, lp, bp, y, x,
+                            nb);
+}
 
-template <bool TRANS_B>
-cudaError_t gemm(Batch bt, int M, int N, int K, float alpha, const float* A,
-                 int lda, size_t sa, const float* B, int ldb, size_t sb,
-                 float beta, float* C, int ldc, size_t sc) {
-  const dim3 grid(N / TILE, M / TILE, bt.count);
-  gemm_f32<TRANS_B><<<grid, GEMM_THREADS, 0, bt.s>>>(K, alpha, A, lda, sa, B,
-                                                      ldb, sb, beta, C, ldc, sc);
+using SubstituteLaunch = cudaError_t (*)(cudaStream_t, const float*,
+                                         const float*, const float*, float*,
+                                         float*, int, int);
+template <int... NF>
+constexpr SubstituteLaunch substitute_table(int nf,
+                                            std::integer_sequence<int, NF...>) {
+  constexpr SubstituteLaunch table[] = {launch_substitute<NF + 1>...};
+  return table[nf - 1];
+}
+
+template <int BM>
+cudaError_t launch_lp_schur(cudaStream_t s, int batch, int kb, int j,
+                            const float* dsym_j, const float* lcoup_j,
+                            const float* ldinv_prev, float* lp, float* lp_j,
+                            float* a, size_t gs, size_t ws) {
+  const int nt = kb / BM;
+  constexpr size_t smem = gemm_smem<BM>();
+  auto lp_gemm = gemm_nt<BM, false, true, false>;
+  auto schur_gemm = gemm_nt<BM, true, false, true>;
+  RETURN_IF_ERROR(cudaFuncSetAttribute(
+      lp_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  RETURN_IF_ERROR(cudaFuncSetAttribute(
+      schur_gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
+  if (j > 0) {
+    // lp_j = Lcoup_j ldinv_{j-1}^T
+    lp_gemm<<<dim3(nt * nt, batch), GEMM_THREADS, smem, s>>>(
+        kb, kb, lcoup_j, gs, ldinv_prev, gs, nullptr, 0, lp_j, gs, nullptr, 0);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  // D̂_j = Dsym_j - lp_j lp_j^T into the running block; at j = 0 the copy,
+  // which also zeroes lp_0
+  schur_gemm<<<dim3(nt * (nt + 1) / 2, batch), GEMM_THREADS, smem, s>>>(
+      kb, j > 0 ? kb : 0, lp_j, gs, lp_j, gs, dsym_j, gs, a, ws,
+      j > 0 ? nullptr : lp, gs);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-#define RETURN_IF_ERROR(expr)             \
-  do {                                    \
-    const cudaError_t err_ = (expr);      \
-    if (err_ != cudaSuccess) return err_; \
-  } while (0)
 
 extern "C" {
 
@@ -288,8 +972,9 @@ const char* cuda_error_string(int code) {
 }
 
 // K1. dsym, lcoup: (batch, nb, kb, kb) f32 inputs (dsym symmetric). ldinv,
-// lp: (batch, nb, kb, kb) outputs, lp[:, 0] = 0. work: batch x (2 kb^2 +
-// PANEL kb) floats.
+// lp: (batch, nb, kb, kb) outputs, every element written, lp[:, 0] = 0.
+// work: batch x 2 kb^2 floats (the running block, then L's sub-diagonal
+// panels).
 int band_factorize_f32(int device, const float* dsym, const float* lcoup,
                        float* ldinv, float* lp, float* work, int nb, int kb,
                        int batch, void* stream) {
@@ -297,67 +982,41 @@ int band_factorize_f32(int device, const float* dsym, const float* lcoup,
       batch > MAX_BATCH)
     return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(device));
-  const Batch bt{static_cast<cudaStream_t>(stream), batch};
-  const cudaStream_t s = bt.s;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t blk = (size_t)kb * kb;
-  const size_t gs = nb * blk;                  // graph stride of the band
-  const size_t ws = 2 * blk + (size_t)PANEL * kb;  // graph stride of work
-  float* a = work;               // running block D̂_j, factored in place
-  float* lbuf = work + blk;      // L_j's panels below the diagonal panels
-  float* acc = work + 2 * blk;   // PANEL x kb scratch (leading dim kb)
+  const size_t gs = nb * blk;   // graph stride of the band
+  const size_t ws = 2 * blk;    // graph stride of work
+  float* a = work;              // running block D̂_j, factored in place
+  float* lbuf = work + blk;     // L_j's panels below the diagonal panels
   const int np = kb / PANEL;
-  const size_t row = blk * sizeof(float);
   RETURN_IF_ERROR(cudaFuncSetAttribute(
       panel_chol_inv, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)PANEL_SMEM));
-  // block j of every graph: one strided memset or copy for the batch
-  RETURN_IF_ERROR(cudaMemset2DAsync(lp, gs * sizeof(float), 0, row, batch, s));
+  RETURN_IF_ERROR(cudaFuncSetAttribute(
+      trail_offdiag, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TRAIL_OFFDIAG_SMEM));
   for (int j = 0; j < nb; ++j) {
     float* li = ldinv + j * blk;
-    RETURN_IF_ERROR(
-        cudaMemset2DAsync(li, gs * sizeof(float), 0, row, batch, s));
-    RETURN_IF_ERROR(cudaMemcpy2DAsync(a, ws * sizeof(float), dsym + j * blk,
-                                      gs * sizeof(float), row, batch,
-                                      cudaMemcpyDeviceToDevice, s));
-    if (j > 0) {
-      float* lpj = lp + j * blk;
-      // lp_j = Lcoup_j ldinv_{j-1}^T ; D̂_j = Dsym_j - lp_j lp_j^T
-      RETURN_IF_ERROR(gemm<true>(bt, kb, kb, kb, 1.f, lcoup + j * blk, kb, gs,
-                                 ldinv + (j - 1) * blk, kb, gs, 0.f, lpj, kb,
-                                 gs));
-      RETURN_IF_ERROR(gemm<true>(bt, kb, kb, kb, -1.f, lpj, kb, gs, lpj, kb,
-                                 gs, 1.f, a, kb, ws));
-    }
-    // diagonal panels: Linv_ii, then L[rest, i] = A[rest, i] Linv_ii^T and
-    // the trailing update A[rest, rest] -= L[rest, i] L[rest, i]^T
+    const float* prev = j > 0 ? ldinv + (j - 1) * blk : nullptr;
+    // 128x128 tiles where they alone give >= 32 CTAs a graph
+    RETURN_IF_ERROR(kb >= 1024
+        ? launch_lp_schur<128>(s, batch, kb, j, dsym + j * blk,
+                               lcoup + j * blk, prev, lp, lp + j * blk, a, gs,
+                               ws)
+        : launch_lp_schur<64>(s, batch, kb, j, dsym + j * blk,
+                              lcoup + j * blk, prev, lp, lp + j * blk, a, gs,
+                              ws));
     for (int i = 0; i < np; ++i) {
-      const size_t o = (size_t)i * PANEL;
+      const int o = i * PANEL;
       panel_chol_inv<<<batch, PANEL_THREADS, PANEL_SMEM, s>>>(
-          a + o * kb + o, kb, ws, li + o * kb + o, kb, gs);
+          kb, a + (size_t)o * kb + o, ws, li + (size_t)o * kb + o, gs);
       RETURN_IF_ERROR(cudaGetLastError());
-      const int rest = kb - (i + 1) * PANEL;
-      if (rest == 0) continue;
-      const size_t r0 = o + PANEL;
-      RETURN_IF_ERROR(gemm<true>(bt, rest, PANEL, PANEL, 1.f, a + r0 * kb + o,
-                                 kb, ws, li + o * kb + o, kb, gs, 0.f,
-                                 lbuf + r0 * kb + o, kb, ws));
-      RETURN_IF_ERROR(gemm<true>(bt, rest, rest, PANEL, -1.f,
-                                 lbuf + r0 * kb + o, kb, ws,
-                                 lbuf + r0 * kb + o, kb, ws, 1.f,
-                                 a + r0 * kb + r0, kb, ws));
-    }
-    // off-diagonal inverse panels, one panel row k at a time:
-    // Linv[k, :k] = -Linv_kk (L[k, :k] Linv[:k, :k]); Linv's upper panels
-    // are still zero, so the product over the full :k range is the sum
-    // over m = i .. k-1 of the block forward substitution.
-    for (int k = 1; k < np; ++k) {
-      const size_t r0 = (size_t)k * PANEL;
-      const int w = k * PANEL;
-      RETURN_IF_ERROR(gemm<false>(bt, PANEL, w, w, 1.f, lbuf + r0 * kb, kb,
-                                  ws, li, kb, gs, 0.f, acc, kb, ws));
-      RETURN_IF_ERROR(gemm<false>(bt, PANEL, w, PANEL, -1.f,
-                                  li + r0 * kb + r0, kb, gs, acc, kb, ws, 0.f,
-                                  li + r0 * kb, kb, gs));
+      const int nt = (kb - o - PANEL) / TT;
+      const int n_trail = nt * (nt + 1) / 2, n_off = o / OT;
+      if (n_trail + n_off == 0) continue;
+      trail_offdiag<<<dim3(n_trail + n_off, batch), 256, TRAIL_OFFDIAG_SMEM,
+                      s>>>(kb, o, n_trail, a, ws, li, gs, lbuf, ws);
+      RETURN_IF_ERROR(cudaGetLastError());
     }
   }
   return cudaGetLastError();
@@ -373,11 +1032,10 @@ int band_substitute_f32(int device, const float* ldinv, const float* lp,
     return cudaErrorInvalidValue;
   RETURN_IF_ERROR(cudaSetDevice(device));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = (2 * (size_t)kb + SUB_THREADS) * sizeof(float);
-  band_forward<<<batch, SUB_THREADS, smem, s>>>(ldinv, lp, bp, y, nb, kb);
-  RETURN_IF_ERROR(cudaGetLastError());
-  band_backward<<<batch, SUB_THREADS, smem, s>>>(ldinv, lp, y, x, nb, kb);
-  return cudaGetLastError();
+  // one kernel for each kb = 128 NF, NF = 1 .. MAX_NF
+  if (kb > MAX_NF * PANEL) return cudaErrorInvalidValue;
+  return substitute_table(kb / PANEL, std::make_integer_sequence<int, MAX_NF>())(
+      s, ldinv, lp, bp, y, x, nb, batch);
 }
 
 }  // extern "C"

@@ -20,8 +20,9 @@ then; for a CUDA tensor it launches the kernel or raises. ``LAUNCHES``
 counts the calls of each wrapper that launch its kernel: one a call,
 whatever the batch.
 
-Both take a fleet's leading batch axis: every kernel of the launch
-sequence gets a grid axis over the graphs, so B chains cost one host loop.
+Both take a fleet's leading batch axis: every kernel of K1's launch
+sequence gets a grid axis over the graphs, so B chains cost one host loop;
+K2 is one launch with a cluster of CTAs per graph.
 
 ``solve_band_kernel`` keeps the contract of ``solve_band_pallas``: RCM,
 Jacobi scaling, symmetrization and padding in torch outside the kernels,
@@ -39,6 +40,7 @@ from rustrobotics_tpu_torch.ops import cuda_lib
 from rustrobotics_tpu_torch.ops.batched_tri import chol_blocked, tril_inv
 
 PANEL = 128  # the kernels' panel width; kb must be a multiple of it
+MAX_KB = 2048  # K2 has a kernel for each kb = 128, 256, .., 2048
 
 LAUNCHES = {"factorize": 0, "substitute": 0}
 
@@ -122,8 +124,8 @@ def factorize_kernel(dsym, lcoup):
     _check_inputs(d4, l4, shapes=[(batch, nb, kb, kb)] * 2)
     ldinv = torch.empty_like(dsym)
     lp = torch.empty_like(dsym)
-    # per graph: running block, L's sub-diagonal panels, PANEL x kb scratch
-    work = torch.empty(batch, 2 * kb * kb + PANEL * kb, dtype=torch.float32,
+    # per graph: the running block and L's sub-diagonal panels
+    work = torch.empty(batch, 2 * kb * kb, dtype=torch.float32,
                        device=dsym.device)
     lib = _lib()
     status = lib.band_factorize_f32(
@@ -137,11 +139,16 @@ def factorize_kernel(dsym, lcoup):
 
 def substitute_kernel(ldinv, lp, bp):
     """K2: solve L L^T x = bp through (ldinv, lp); bp f32 (nb, kb), or
-    (B, nb, kb) with (B, nb, kb, kb) factors, all B in one launch pair."""
+    (B, nb, kb) with (B, nb, kb, kb) factors, all B in one launch, kb up
+    to MAX_KB. ldinv must be lower triangular with zeros above the
+    diagonal, as K1 writes it: the kernel skips the 16-byte groups that
+    lie wholly above it."""
     if bp.device.type == "cpu":
         return substitute_plain(ldinv, lp, bp)
     b3 = _lead(bp, 2)
     batch, nb, kb = b3.shape
+    if kb > MAX_KB:
+        raise ValueError(f"kb={kb} is above K2's {MAX_KB}")
     _check_inputs(_lead(ldinv, 3), _lead(lp, 3), b3,
                   shapes=[(batch, nb, kb, kb)] * 2 + [(batch, nb, kb)])
     y = torch.empty_like(bp)

@@ -125,6 +125,44 @@ def test_substitute_plain_matches_xla_chain(sys_):
     assert rel_to_max(got.numpy(), want) < 1e-8
 
 
+@pytest.fixture(scope="module")
+def wide_band():
+    """A random well-conditioned band at kb=768, nb=3, f64: past the TPU
+    kernels' kb <= 512 and inside the CUDA kernels' range. Diagonal
+    blocks M M^T / kb + 2 I, couplings N(0, 0.3² / kb), coupling 0 zero;
+    the JAX chain's (nb, kb, 2kb) block rows are [coupling | diagonal]."""
+    nb, kb = 3, 768
+    rng = np.random.default_rng(5)
+    m = rng.normal(size=(nb, kb, kb))
+    dsym = m @ np.swapaxes(m, -1, -2) / kb + 2.0 * np.eye(kb)
+    lcoup = rng.normal(scale=0.3 / np.sqrt(kb), size=(nb, kb, kb))
+    lcoup[0] = 0.0
+    bp = rng.normal(size=(nb, kb))
+    jr = jnp.asarray(np.concatenate([lcoup, dsym], axis=-1))
+    _, j_ldinv, j_lps = jbc._factorize_inv(jr)
+    return dict(dsym=dsym, lcoup=lcoup, bp=bp, j_ldinv=j_ldinv, j_lps=j_lps)
+
+
+def test_factorize_plain_matches_xla_chain_kb768(wide_band):
+    ldinv, lp = bk.factorize_plain(torch.as_tensor(wide_band["dsym"]),
+                                   torch.as_tensor(wide_band["lcoup"]))
+    assert rel_to_max(ldinv.numpy(), wide_band["j_ldinv"]) < 1e-8
+    assert float(lp[0].abs().max()) == 0.0
+    assert rel_to_max(lp[1:].numpy(), wide_band["j_lps"]) < 1e-8
+
+
+def test_substitute_plain_matches_xla_chain_kb768(wide_band):
+    j_ldinv, j_lps = wide_band["j_ldinv"], wide_band["j_lps"]
+    want = jbc.band_substitute_inv(j_ldinv, j_lps,
+                                   jnp.asarray(wide_band["bp"]))
+    lp = np.concatenate([np.zeros_like(np.asarray(j_lps[:1])),
+                         np.asarray(j_lps)])
+    got = bk.substitute_plain(torch.tensor(np.asarray(j_ldinv)),
+                              torch.as_tensor(lp),
+                              torch.as_tensor(wide_band["bp"]))
+    assert rel_to_max(got.numpy(), want) < 1e-8
+
+
 def test_solve_band_chol_f64_matches(sys_):
     want = jbc.solve_band_chol(sys_["jbl"], sys_["jvals"], sys_["jb"])
     got = tbc.solve_band_chol(sys_["bl"], sys_["vals"], sys_["b"])

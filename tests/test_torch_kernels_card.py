@@ -46,7 +46,7 @@ def _random_band(nb, kb, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kb", [256, 384, 512])
+@pytest.mark.parametrize("kb", [128, 256, 384, 512, 768, 1024])
 def test_kernels_match_plain(cuda_device, kb):
     dsym, lcoup, bp = _random_band(3, kb, cuda_device)
     before = dict(bk.LAUNCHES)
@@ -192,18 +192,41 @@ def test_band_assemble_rejects_bad_input(cuda_device):
 
 
 @pytest.mark.cuda
-def test_batched_kernels_match_per_graph(cuda_device):
+def test_factorize_launches_per_block_row(cuda_device):
+    """One K1 call at kb=512, nb=3 issues at most 12 device kernels a
+    block row (counted by torch.profiler), and no copy or memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    nb = 3
+    dsym, lcoup, _ = _random_band(nb, 512, cuda_device)
+    bk.factorize_kernel(dsym, lcoup)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bk.factorize_kernel(dsym, lcoup)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in dev if "emcpy" not in e.name
+               and "emset" not in e.name]
+    assert dev, "the profiler recorded no device events"
+    assert len(kernels) == len(dev)
+    assert len(kernels) <= 12 * nb, len(kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,kb", [(3, 256), (8, 512)])
+def test_batched_kernels_match_per_graph(cuda_device, batch, kb):
     """K1/K2 over a batch axis: graph i of the batch equals the unbatched
     kernels on graph i bit for bit, with one launch a call."""
-    dsym, lcoup, bp = _random_band(3 * 3, 256, cuda_device)
-    dsym, lcoup = dsym.view(3, 3, 256, 256), lcoup.view(3, 3, 256, 256)
-    bp = bp.view(3, 3, 256)
+    dsym, lcoup, bp = _random_band(batch * 3, kb, cuda_device)
+    dsym, lcoup = dsym.view(batch, 3, kb, kb), lcoup.view(batch, 3, kb, kb)
+    bp = bp.view(batch, 3, kb)
     before = dict(bk.LAUNCHES)
     ld_b, lp_b = bk.factorize_kernel(dsym, lcoup)
     x_b = bk.substitute_kernel(ld_b, lp_b, bp)
     assert bk.LAUNCHES["factorize"] == before["factorize"] + 1
     assert bk.LAUNCHES["substitute"] == before["substitute"] + 1
-    for i in range(3):
+    for i in range(batch):
         ld_1, lp_1 = bk.factorize_kernel(dsym[i].contiguous(),
                                          lcoup[i].contiguous())
         assert torch.equal(ld_b[i], ld_1) and torch.equal(lp_b[i], lp_1)
