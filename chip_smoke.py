@@ -27,9 +27,11 @@ Phases; any failure ends the script with a non-zero exit code:
    K5 (the same for a fleet) on the fleet's: corridor-1728 and 7 copies
    with poses jittered by N(0, 0.05²) (numpy seed FLEET_SEED); each band
    entry within ASSEMBLE_ULPS f32 units of the sum of its |contributions|
-   from the plain index_add_, and bit-equal between two launches. K1/K2
-   over the fleet's batch axis against the unbatched K1/K2 on each graph
-   (bit-equal expected; gated at PARITY_TOL);
+   from the plain index_add_, bit-equal between two launches, and one
+   device operation a call (torch.profiler: one kernel, no memset or
+   copy); whether the band equals the plain index_add_ on the CPU bit for
+   bit is printed. K1/K2 over the fleet's batch axis against the unbatched
+   K1/K2 on each graph (bit-equal expected; gated at PARITY_TOL);
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    a. make_optimize(backend="banded-kernel") on corridor-1728 in f32,
@@ -55,7 +57,7 @@ Phases; any failure ends the script with a non-zero exit code:
    yardstick, each beside its bound, as device time a call with the calls
    queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
    in the solve; K3's, K4's and K5's with L2 flushed before each call, as
-   their bounds count every byte through HBM; K3's L2-warm time is
+   their bounds count every byte through HBM; their L2-warm times are
    printed beside them); the stages of one GN iteration
    of each main path; GN iterations/s end to end for each, and the
    fleet's graph-iterations/s against one graph's;
@@ -828,8 +830,9 @@ def assemble_errors(bl, vals):
     """K4 (vals (nnz,)) or K5 (vals (B, nnz)) against the plain
     index_add_: the largest band-entry difference in units of 2^-24 * the
     sum of its |contributions|, the plain f32 sum's own distance from the
-    exact one in the same units, max|kernel - plain|, and whether two
-    launches agree bit for bit."""
+    exact one in the same units, max|kernel - plain|, whether two launches
+    agree bit for bit, and whether the band equals the plain version's on
+    the CPU (where index_add_ sums in plan order) bit for bit."""
     import torch
 
     from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
@@ -842,6 +845,7 @@ def assemble_errors(bl, vals):
     want = band_assemble_plain(bl, vals)
     unit = 2.0 ** -24 * band_assemble_plain(bl, vals.double().abs())
     exact = band_assemble_plain(bl, vals.double())
+    on_cpu = band_assemble_plain(bl, vals.cpu())
     torch.cuda.synchronize()
 
     def ulps(y, ref):
@@ -851,21 +855,48 @@ def assemble_errors(bl, vals):
     return dict(finite=bool(torch.isfinite(got).all()),
                 ulps=ulps(got, want.double()), plain_ulps=ulps(want, exact),
                 max_abs_err=float((got - want).abs().max()),
-                deterministic=torch.equal(got, again))
+                deterministic=torch.equal(got, again),
+                cpu_equal=torch.equal(got.cpu().view(torch.int32),
+                                      on_cpu.view(torch.int32)))
+
+
+def device_ops(fn):
+    """The names of the device operations (kernels, memsets, copies) that
+    one call of fn runs, by torch.profiler, after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def assemble_parity(name, bl, vals):
     """Phase 3 for K4 or K5 on one input; returns its errors."""
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
+
     e = assemble_errors(bl, vals)
+    ops = device_ops(lambda: band_assemble_kernel(bl, vals))
     print(f"  {name}: max entry error {e['ulps']:.6g} f32 units of "
           f"sum|contributions| (plain f32 against exact: "
           f"{e['plain_ulps']:.6g}); max|kernel - plain| "
           f"{e['max_abs_err']:.6g}; two launches bit-equal: "
-          f"{e['deterministic']}", flush=True)
+          f"{e['deterministic']}; bit-equal to the plain index_add_ on the "
+          f"CPU: {e['cpu_equal']}; device operations of one call: {ops}",
+          flush=True)
     require(e["finite"], f"{name} output finite")
     require(e["ulps"] <= ASSEMBLE_ULPS,
             f"{name} within {ASSEMBLE_ULPS} f32 units of the plain scatter")
     require(e["deterministic"], f"{name} bit-equal between two launches")
+    require(len(ops) == 1 and "band_assemble" in ops[0],
+            f"{name} one device operation a call (the kernel; no memset or "
+            f"copy)")
     return e
 
 
@@ -1059,7 +1090,9 @@ def assemble_times(bl, vals):
     """K4 or K5's time, its plain version's and the library yardstick's,
     each with L2 flushed before the call (the band's write dominates the
     bound), beside the bound: the band written once and the kept values
-    read once; one addition a kept value."""
+    read once; one addition a kept value. The kernel's L2-warm time (calls
+    back to back, as in the GN loop, where one graph's band stays in L2)
+    is the extra key l2_warm_ms."""
     import torch
 
     from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
@@ -1089,12 +1122,20 @@ def assemble_times(bl, vals):
         library_ms=queued_ms(
             lambda: torch.zeros(batch + (band,), device=vals.device)
             .index_add_(-1, dest, pre), calls=20, flush=junk.sum),
-        bound_ms=bound, bound_by=by)
+        bound_ms=bound, bound_by=by,
+        l2_warm_ms=queued_ms(lambda: band_assemble_kernel(bl, vals)))
+    # what writing the band alone takes under the same timing
+    fill = torch.empty(batch + (band,), device=vals.device)
+    fill_ms = queued_ms(fill.zero_, calls=20, flush=junk.sum)
+    fill_warm_ms = queued_ms(fill.zero_)
     print(f"[times] band_assemble B={graphs}, L2 flushed before each call: "
           f"kernel {out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms, "
           f"zeros + index_add_ yardstick {out['library_ms']:.6f} ms "
           f"(max|yardstick - plain| {lib_err:.3g}), bound {bound:.6f} ms "
-          f"({by}; {nbytes:.4g} B), kernel/bound {out['ms'] / bound:.2f}",
+          f"({by}; {nbytes:.4g} B), kernel/bound {out['ms'] / bound:.2f}; "
+          f"readings: kernel L2-warm {out['l2_warm_ms']:.6f} ms (50 calls "
+          f"back to back), the band's fill alone (Tensor.zero_) "
+          f"{fill_ms:.6f} ms flushed, {fill_warm_ms:.6f} ms L2-warm",
           flush=True)
     return out
 
@@ -1291,7 +1332,7 @@ def main() -> int:
              err_measure="max|band_kernel - band_plain|, corridor-1728's "
                          "triplets at the first LM step's damping",
              ms_measure="ms, plain_ms and library_ms with L2 flushed "
-                        "before each call",
+                        "before each call; l2_warm_ms 50 calls back to back",
              **timed["assemble_b1"]),
         dict(name=f"band_assemble_f32 (K5, B={FLEET})", route="cuda",
              source=asm,
@@ -1301,7 +1342,7 @@ def main() -> int:
              err_measure=f"max|band_kernel - band_plain|, the fleet of "
                          f"{FLEET}'s triplets at the first LM step's damping",
              ms_measure="ms, plain_ms and library_ms with L2 flushed "
-                        "before each call",
+                        "before each call; l2_warm_ms 50 calls back to back",
              **timed["assemble_batch"]),
     ]
     for k in kernels:

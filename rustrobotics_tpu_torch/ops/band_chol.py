@@ -19,7 +19,8 @@ The RCM permutation, the scatter indices and the block size are planned
 once per graph on the host (``build_band_chol``); the symmetric Jacobi
 scaling is applied to the block rows every solve (``_prepare_blocks``).
 The plan also holds the JAX package's sorted-scatter plan (each unique
-band destination one segment of source triplets, in a fixed order): the
+band destination one segment of source triplets, in a fixed order) and
+its cut into tiles of ``ASSEMBLE_TILE`` band floats (``tile_ptr``): the
 job list of the CUDA band assembly K4/K5
 (``band_assemble_kernels.band_assemble_kernel``), which takes the place
 of the plain scatter on the ``banded-kernel`` path.
@@ -46,6 +47,11 @@ from rustrobotics_tpu_torch.ops.band_chol_kernels import (
 )
 from rustrobotics_tpu_torch.ops.batched_tri import _sym
 
+# Band floats a tile of the assembly's plan: one CTA of K4/K5 owns a tile
+# (32 KB, eight rows at kb = 512). It divides every band, nb kb 2kb with
+# kb a multiple of 128; csrc/band_assemble.cu's TILE must equal it.
+ASSEMBLE_TILE = 8192
+
 
 @dataclasses.dataclass(frozen=True)
 class BandCholLayout:
@@ -68,9 +74,13 @@ class BandCholLayout:
     seg_sorted: np.ndarray  # nondecreasing segment id per sorted triplet
     uniq_idx: np.ndarray    # unique destinations (sorted)
     seg_ptr: np.ndarray     # (len(uniq_idx) + 1,) segment starts in sel_sorted
+    # (tiles + 1,) starts in uniq_idx of the ASSEMBLE_TILE-float tiles:
+    # tile t's destinations are uniq_idx[tile_ptr[t]:tile_ptr[t + 1]]
+    tile_ptr: np.ndarray
 
     _INDEX_FIELDS = ("perm", "inv_perm", "sel", "flat_idx", "pad_rows",
-                     "sel_sorted", "seg_sorted", "uniq_idx", "seg_ptr")
+                     "sel_sorted", "seg_sorted", "uniq_idx", "seg_ptr",
+                     "tile_ptr")
 
     def to(self, device) -> "BandCholLayout":
         return dataclasses.replace(self, **{
@@ -134,6 +144,9 @@ def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
     uniq_idx, inv_u = np.unique(flat_idx, return_inverse=True)
     seg_sorted = inv_u[order].astype(np.int32)
     seg_ptr = np.searchsorted(seg_sorted, np.arange(len(uniq_idx) + 1))
+    tiles = nb * kb * 2 * kb // ASSEMBLE_TILE
+    tile_ptr = np.searchsorted(
+        uniq_idx, np.arange(tiles + 1, dtype=np.int64) * ASSEMBLE_TILE)
 
     return BandCholLayout(
         n=n, kb=kb, nb=nb, q=q,
@@ -146,6 +159,7 @@ def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
         seg_sorted=seg_sorted,
         uniq_idx=uniq_idx.astype(np.int64),
         seg_ptr=seg_ptr.astype(np.int64),
+        tile_ptr=tile_ptr.astype(np.int64),
     )
 
 

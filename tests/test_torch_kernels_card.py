@@ -142,12 +142,12 @@ def test_cg_banded_runs_the_kernel(cuda_device, monkeypatch):
     torch.testing.assert_close(err_k[big], err_plain[big], rtol=1e-3, atol=0)
 
 
-def _fleet(device, batch=3, num_poses=256):
+def _fleet(device, batch=3, num_poses=256, num_landmarks=4, closure_span=32):
     """A corridor graph and jittered copies (f32, numpy seed)."""
     import numpy as np
 
-    g = synthetic_corridor_graph_2d(num_poses, num_landmarks=4,
-                                    closure_span=32, device=device,
+    g = synthetic_corridor_graph_2d(num_poses, num_landmarks=num_landmarks,
+                                    closure_span=closure_span, device=device,
                                     dtype=torch.float32)
     rng = np.random.default_rng(0)
     poses = g.poses2.cpu().numpy()
@@ -189,6 +189,52 @@ def test_band_assemble_rejects_bad_input(cuda_device):
         bak.band_assemble_kernel(bl, vals.double())
     with pytest.raises(ValueError, match="contiguous"):
         bak.band_assemble_kernel(bl, torch.stack([vals, vals], 1).T)
+    with pytest.raises(ValueError, match=r"bl\.to"):
+        bak.band_assemble_kernel(build_band_chol(build_layout(graphs[0])),
+                                 vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("corridor,kb", [((256, 4, 32), 256),
+                                         ((640, 8, 160), 512)])
+def test_band_assemble_bit_equal_to_cpu_plain(cuda_device, batched, corridor,
+                                              kb):
+    """K4 (one graph) and K5 (a batch of 3) give the band of the plain
+    index_add_ on the CPU copy of the same f32 values bit for bit: each
+    entry is summed from 0 in plan order. At kb = 256 the batch is 192
+    CTAs, not a whole number of waves."""
+    num_poses, num_landmarks, closure_span = corridor
+    graphs, fleet = _fleet(cuda_device, num_poses=num_poses,
+                           num_landmarks=num_landmarks,
+                           closure_span=closure_span)
+    bl = build_band_chol(build_layout(graphs[0]))
+    assert bl.kb == kb
+    vals = system_values(fleet if batched else graphs[0], 0.01)[0]
+    got = bak.band_assemble_kernel(bl.to(cuda_device), vals).cpu()
+    want = bak.band_assemble_plain(bl, vals.cpu())
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_band_assemble_is_one_device_op(cuda_device, batched):
+    """One K4 or K5 call runs exactly one device kernel (counted by
+    torch.profiler): no memset and no copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graphs, fleet = _fleet(cuda_device)
+    bl = build_band_chol(build_layout(graphs[0])).to(cuda_device)
+    vals = system_values(fleet if batched else graphs[0], 0.01)[0]
+    bak.band_assemble_kernel(bl, vals)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bak.band_assemble_kernel(bl, vals)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(dev) == 1 and "band_assemble" in dev[0], dev
 
 
 @pytest.mark.cuda
