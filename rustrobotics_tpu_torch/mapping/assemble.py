@@ -1,21 +1,24 @@
 """Normal-equation assembly for pose-graph optimization (counterpart of
-``rustrobotics_tpu/mapping/assemble.py``, SE2 only, no robust kernels).
+``rustrobotics_tpu/mapping/assemble.py``).
 
 Accumulate per-edge ``A^T Ω A`` blocks into H and ``A^T Ω e`` into b, add
-the gauge prior (+1e7 on the first SE2 edge's from-pose diagonal), negate
-b, and add the LM damping λ to every diagonal.
+the gauge prior (+1e7 on the first SE2 edge's from-pose diagonal, or the
+first SE3 edge's for a pure 3D graph), negate b, and add the LM damping λ
+to every diagonal.
 
 - the sparsity pattern (triplet rows/cols in the reference dof layout) is
   planned once per graph on the host in numpy (``SystemLayout``);
 - the values are one pass of tensor code per iteration
   (``system_values``), a flat value vector aligned with the layout plus
-  the RHS and χ²;
+  the RHS and χ²; SE2 edges in component form, SE3 edges through the
+  forward-mode Jacobians of ``linearize.edge_terms_qq``;
+- the robust kernels (Huber, Cauchy, Barron, GNC Geman-McClure) scale
+  each edge's contribution by its IRLS weight (``robust_weight``);
+  ``robust_rho`` is the matching loss of the LM accept test;
 - a fleet of same-structure graphs (``pgo.stack_graphs``) runs the same
-  code with a leading batch axis on every value.
+  code with a leading batch axis on every value (and on the GNC μ).
 
-Not ported yet: SE3 edges, the robust kernels and GNC
-(``robust_weight``/``robust_rho``), and the layout's Schur maps (they
-serve the Schur backend).
+Not ported yet: the layout's Schur maps (they serve the Schur backend).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rustrobotics_tpu_torch.geometry import se2
+from rustrobotics_tpu_torch.geometry import se2, se3
 from rustrobotics_tpu_torch.mapping import linearize
 from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
 
@@ -194,12 +197,6 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
     )
 
 
-def require_se2(graph: PoseGraphData):
-    if graph.qq_from.shape[0] or graph.poses3.shape[-2]:
-        raise NotImplementedError(
-            "SE3 nodes and edges are not ported to rustrobotics_tpu_torch yet")
-
-
 def _add_rhs(bvec, offsets, comp):
     """bvec[..., offsets + k] += comp[..., k, :] for every component k of
     comp (..., d, E)."""
@@ -209,25 +206,154 @@ def _add_rhs(bvec, offsets, comp):
                     comp.reshape(comp.shape[:-2] + (-1,)))
 
 
+def _quad_blocks(e, a, b, omega):
+    """(H_ii, H_ij, H_ji, H_jj, b_i, b_j) of a batch of edges: e (..., E,
+    d), a, b, omega (..., E, d, d) in; entry-major (..., d, d, E) blocks
+    and (..., d, E) RHS parts out, the order of ``_block_indices``. The
+    products are elementwise multiply-adds, not matmuls, so no
+    reduced-precision (TF32) pass can touch them: the 1e7 gauge prior
+    makes a TF32 system go NaN."""
+    a, b, om = (t.movedim(-3, -1) for t in (a, b, omega))
+    om_a = linearize._mat_tmul(om, a)  # Ω A (Ω symmetric)
+    om_b = linearize._mat_tmul(om, b)
+    h_ii = linearize._mat_tmul(a, om_a)  # Aᵀ Ω A
+    h_ij = linearize._mat_tmul(a, om_b)  # Aᵀ Ω B
+    h_jj = linearize._mat_tmul(b, om_b)  # Bᵀ Ω B
+    om_e = linearize._mat_tvec(om, e.movedim(-2, -1))
+    b_i = linearize._mat_tvec(a, om_e)  # Aᵀ Ω e
+    b_j = linearize._mat_tvec(b, om_e)
+    return h_ii, h_ij, h_ij.transpose(-3, -2), h_jj, b_i, b_j
+
+
+ROBUST_KERNELS = {
+    # weight(chi2) for iteratively-reweighted least squares; chi2 is the
+    # edge's squared Mahalanobis error
+    "huber": lambda c2, d: torch.clamp(
+        d / torch.sqrt(torch.clamp(c2, min=1e-20)), max=1.0),
+    "cauchy": lambda c2, d: 1.0 / (1.0 + c2 / (d * d)),
+}
+
+# Adaptive kernels, as in the JAX package:
+# - "barron": Barron's general robust loss (alpha sweeps L2 -> Charbonnier
+#   -> Cauchy -> Geman-McClure -> Welsch); IRLS weight
+#   w = ((r/c)^2 / |alpha - 2| + 1) ^ (alpha/2 - 1);
+# - "gnc-gm": graduated non-convexity over Geman-McClure, weight
+#   w = (mu c^2 / (r^2 + mu c^2))^2, mu annealed mu0 -> 1 by the optimizer
+#   loop (mapping.pgo); assembly only evaluates the weight at the given mu.
+ADAPTIVE_KERNELS = ("barron", "gnc-gm")
+# mu0 ceiling of the GNC continuation (the JAX package's swept value)
+GNC_MU0_CAP = 1e3
+
+
+def _mu(mu, c2):
+    """The GNC parameter as a value that broadcasts against c2: None is 1;
+    a tensor carries the graph's batch shape (0-d for one graph) and gains
+    the edge axis."""
+    if mu is None:
+        return 1.0
+    if torch.is_tensor(mu):
+        return mu.to(c2.dtype)[..., None]
+    return mu
+
+
+def robust_weight(robust, c2, delta, alpha=-2.0, mu=None):
+    """Per-edge IRLS weight for the given kernel at squared error c2
+    (..., E).
+
+    ``robust`` in {None, "huber", "cauchy", "barron", "gnc-gm"};
+    ``delta`` is the kernel scale c, ``alpha`` the Barron shape, ``mu``
+    the GNC continuation parameter (None -> 1; a tensor of the graph's
+    batch shape for a fleet, one μ a row).
+    """
+    if robust is None:
+        return torch.ones_like(c2)
+    if robust in ROBUST_KERNELS:
+        return ROBUST_KERNELS[robust](c2, delta)
+    if robust == "barron":
+        alpha = float(alpha)
+        if alpha >= 2.0:
+            return torch.ones_like(c2)
+        base = c2 / (delta * delta) / (2.0 - alpha) + 1.0
+        return base ** (alpha / 2.0 - 1.0)
+    if robust == "gnc-gm":
+        s = _mu(mu, c2) * delta * delta
+        return (s / (c2 + s)) ** 2
+    raise ValueError(f"unknown robust kernel {robust!r}")
+
+
+def robust_rho(robust, c2, delta, alpha=-2.0, mu=None):
+    """Per-edge robust loss rho(c2) matching ``robust_weight`` (the IRLS
+    weights are 2 d rho / d c2 normalized to 1 at 0): the LM accept test's
+    objective in a robust run."""
+    if robust is None:
+        return c2
+    d2 = delta * delta
+    if robust == "huber":
+        r = torch.sqrt(torch.clamp(c2, min=1e-20))
+        return torch.where(c2 <= d2, c2, 2.0 * delta * r - d2)
+    if robust == "cauchy":
+        return d2 * torch.log1p(c2 / d2)
+    if robust == "barron":
+        alpha = float(alpha)
+        if alpha >= 2.0:
+            return c2
+        if alpha == 0.0:
+            return 2.0 * d2 * torch.log1p(c2 / (2.0 * d2))
+        b = 2.0 - alpha
+        return (2.0 * d2 * b / alpha) * (
+            (c2 / (d2 * b) + 1.0) ** (alpha / 2.0) - 1.0)
+    if robust == "gnc-gm":
+        s = _mu(mu, c2) * d2
+        return s * c2 / (s + c2)
+    raise ValueError(f"unknown robust kernel {robust!r}")
+
+
+def odometry(fr, to):
+    """Pose-pose edges between consecutive poses (|to - from| = 1): the
+    ones ``robust_edges="closures"`` keeps at L2."""
+    return (to - fr).abs() == 1
+
+
 def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
-                  robust=None):
+                  robust=None, robust_delta=1.0, robust_alpha=-2.0,
+                  mu=None, robust_edges="closures"):
     """Flat triplet values (aligned with build_layout) + RHS b (negated)
     + total χ². ``lam`` is a number or a tensor of the graph's batch shape
     (0-d for one graph). A fleet gives vals (B, nnz), b (B, n) and χ²
-    (B,)."""
-    if robust is not None:
-        raise NotImplementedError(
-            "robust kernels are not ported to rustrobotics_tpu_torch yet")
-    require_se2(graph)
+    (B,).
+
+    ``robust``: optional M-estimator ("huber", "cauchy", "barron",
+    "gnc-gm"); every edge's contribution is scaled by the IRLS weight of
+    its current squared error. ``robust_alpha`` is the Barron shape,
+    ``mu`` the GNC continuation parameter (a number, or a tensor of the
+    batch shape). ``robust_edges="closures"`` keeps odometry pose-pose
+    edges (|to - from| = 1) at L2; "all" robustifies every edge. The
+    returned χ² stays the raw quadratic error."""
     dtype, device = graph.dtype, graph.device
     batch = graph.batch_shape
     n = graph.total_dof
     bvec = torch.zeros(batch + (n,), dtype=dtype, device=device)
 
+    def weight(c2, fr=None, to=None):
+        w = robust_weight(robust, c2, robust_delta, alpha=robust_alpha,
+                          mu=mu)
+        if robust and robust_edges == "closures" and fr is not None:
+            w = torch.where(odometry(fr, to), torch.ones_like(w), w)
+        return w
+
+    def weighted(blocks, rhs, w):
+        if not robust:
+            return blocks, rhs
+        return ([h * w[..., None, None, :] for h in blocks],
+                [r * w[..., None, :] for r in rhs])
+
     # SE2-SE2 edges
     _, hii, hij, hjj, b_i, b_j, c2_pp = linearize.edge_terms_pp_soa(
         graph.poses2, graph.pp_from, graph.pp_to, graph.pp_z, graph.pp_omega)
-    vals = [hii, hij, hij.transpose(-3, -2), hjj]
+    blocks, (b_i, b_j) = weighted(
+        [hii, hij, hij.transpose(-3, -2), hjj], [b_i, b_j],
+        weight(c2_pp, graph.pp_from, graph.pp_to))
+    vals = list(blocks)
     _add_rhs(bvec, graph.pose2_offsets[graph.pp_from], b_i)
     _add_rhs(bvec, graph.pose2_offsets[graph.pp_to], b_j)
 
@@ -235,20 +361,37 @@ def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
     _, hii, hij, hjj, b_i, b_j, c2_pl = linearize.edge_terms_pl_soa(
         graph.poses2, graph.landmarks2,
         graph.pl_pose, graph.pl_lm, graph.pl_z, graph.pl_omega)
-    vals += [hii, hij, hij.transpose(-3, -2), hjj]
+    blocks, (b_i, b_j) = weighted(
+        [hii, hij, hij.transpose(-3, -2), hjj], [b_i, b_j], weight(c2_pl))
+    vals += blocks
     _add_rhs(bvec, graph.pose2_offsets[graph.pl_pose], b_i)
     _add_rhs(bvec, graph.lm2_offsets[graph.pl_lm], b_j)
+    chi2 = c2_pp.sum(-1) + c2_pl.sum(-1)
+
+    # SE3-SE3 edges
+    if graph.qq_from.shape[0]:
+        e, a, b, c2_qq = linearize.edge_terms_qq(
+            graph.poses3, graph.qq_from, graph.qq_to, graph.qq_z,
+            graph.qq_omega)
+        *blocks, b_i, b_j = _quad_blocks(e, a, b, graph.qq_omega)
+        blocks, (b_i, b_j) = weighted(
+            blocks, [b_i, b_j], weight(c2_qq, graph.qq_from, graph.qq_to))
+        vals += blocks
+        _add_rhs(bvec, graph.pose3_offsets[graph.qq_from], b_i)
+        _add_rhs(bvec, graph.pose3_offsets[graph.qq_to], b_j)
+        chi2 = chi2 + c2_qq.sum(-1)
     vals = [v.reshape(batch + (-1,)) for v in vals]
 
-    if graph.prior2 >= 0:
-        vals.append(torch.full(batch + (3,), prior_weight, dtype=dtype,
-                               device=device))
+    # gauge prior values
+    prior = 3 if graph.prior2 >= 0 else 6 if graph.prior3 >= 0 else 0
+    vals.append(torch.full(batch + (prior,), prior_weight, dtype=dtype,
+                           device=device))
     if torch.is_tensor(lam):
         vals.append(lam.to(dtype)[..., None].expand(batch + (n,)))
     else:
         vals.append(torch.full(batch + (n,), float(lam), dtype=dtype,
                                device=device))
-    return torch.cat(vals, -1), -bvec, c2_pp.sum(-1) + c2_pl.sum(-1)
+    return torch.cat(vals, -1), -bvec, chi2
 
 
 def dense_hessian(layout: SystemLayout, vals):
@@ -264,7 +407,6 @@ def dense_hessian(layout: SystemLayout, vals):
 def apply_update(graph: PoseGraphData, dx) -> PoseGraphData:
     """Manifold retraction of every node from a reference-layout dx
     (..., n), batched as the graph."""
-    require_se2(graph)
     updates = {}
     if graph.pose2_offsets.shape[0]:
         idx = graph.pose2_offsets[:, None] + torch.arange(3, device=dx.device)
@@ -272,4 +414,7 @@ def apply_update(graph: PoseGraphData, dx) -> PoseGraphData:
     if graph.lm2_offsets.shape[0]:
         idx = graph.lm2_offsets[:, None] + torch.arange(2, device=dx.device)
         updates["landmarks2"] = graph.landmarks2 + dx[..., idx]
+    if graph.pose3_offsets.shape[0]:
+        idx = graph.pose3_offsets[:, None] + torch.arange(6, device=dx.device)
+        updates["poses3"] = se3.retract(graph.poses3, dx[..., idx])
     return graph.replace(**updates)

@@ -1,14 +1,15 @@
 """Per-edge residuals and Jacobians for pose-graph optimization
-(counterpart of ``rustrobotics_tpu/mapping/linearize.py``, SE2 only).
+(counterpart of ``rustrobotics_tpu/mapping/linearize.py``).
 
 - SE2 pose-pose residual ``e = chart(z^-1 x1^-1 x2)`` and its closed-form
   Jacobians;
-- SE2 pose-landmark residual ``R^T (l - t) - z`` and its Jacobians.
+- SE2 pose-landmark residual ``R^T (l - t) - z`` and its Jacobians;
+- SE3 pose-pose residual ``[t, so3_log(q)]`` of ``z^-1 x1^-1 x2`` and its
+  Jacobians by ``torch.func.jacfwd`` through the retraction at 0, under
+  ``torch.func.vmap`` over the edges (the JAX package's ``jax.jacfwd``
+  under ``jax.vmap``).
 
-Every function maps over a leading edge axis by broadcasting. The SE3
-pose-pose terms (``edge_terms_qq``, a ``jacfwd`` through the SE3
-retraction in the JAX package) are not ported yet: callers raise
-``NotImplementedError`` on a graph with SE3 edges.
+Every function maps over a leading edge axis by broadcasting.
 
 Component form (the ``*_soa`` functions): a per-edge "matrix" is an
 (r, c, E) tensor, entry-major, so the normal-equation values flatten
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from rustrobotics_tpu_torch.geometry import se2
+from rustrobotics_tpu_torch.geometry import se2, se3
 from rustrobotics_tpu_torch.utils.angles import wrap_angle
 
 # ----------------------------------------------------------------- SE2
@@ -67,6 +68,41 @@ def linearize_pl(x, landmark):
     a2 = torch.einsum("...ji,...j->...i", dr, landmark - x[..., :2])
     a = torch.cat([-r.transpose(-1, -2), a2[..., None]], dim=-1)
     return a, r.transpose(-1, -2)
+
+
+# ----------------------------------------------------------------- SE3
+
+
+def residual_qq(x1, x2, z):
+    """SE(3) pose-pose residual, (..., 6): [translation part of z^-1 x1^-1
+    x2, so3_log of its rotation]. Zero iff the edge is satisfied."""
+    err = se3.compose(se3.inverse(z), se3.relative(x1, x2))
+    return torch.cat([err[..., :3], se3.so3_log(err[..., 3:])], dim=-1)
+
+
+def _residual_perturbed(delta1, delta2, x1, x2, z):
+    return residual_qq(se3.retract(x1, delta1), se3.retract(x2, delta2), z)
+
+
+_JAC_QQ = torch.func.vmap(
+    torch.func.jacfwd(_residual_perturbed, argnums=(0, 1)),
+    in_dims=(None, None, 0, 0, 0))
+
+
+def linearize_qq(x1, x2, z):
+    """(A, B) each (..., 6, 6): the derivative of residual_qq with respect
+    to the boxplus perturbations of x1 and x2 (se3.retract) at 0, by
+    forward-mode AD. The leading axes (edges, and a fleet's batch axis
+    before them) are flattened into one for the vmap and restored after."""
+    lead = torch.broadcast_shapes(x1.shape[:-1], x2.shape[:-1],
+                                  z.shape[:-1])
+    flat = [t.expand(lead + (7,)).reshape(-1, 7) for t in (x1, x2, z)]
+    if flat[0].shape[0] == 0:
+        empty = x1.new_zeros(lead + (6, 6))
+        return empty, empty.clone()
+    zero = x1.new_zeros(6)
+    a, b = _JAC_QQ(zero, zero, *flat)
+    return a.reshape(lead + (6, 6)), b.reshape(lead + (6, 6))
 
 
 # ------------------------------------------------- component (SoA) path
@@ -187,6 +223,23 @@ def edge_terms_pp(poses, pp_from, pp_to, pp_z, pp_omega):
     a, b = linearize_pp(x1, x2, pp_z)
     chi2 = torch.einsum("ei,eij,ej->e", e, pp_omega, e)
     return e, a, b, chi2
+
+
+def quad_form(e, omega):
+    """e^T Ω e per edge: e (..., E, d), omega (..., E, d, d) -> (..., E),
+    as products and sums (no matmul, so no reduced-precision pass)."""
+    return (e[..., :, None] * omega * e[..., None, :]).sum((-1, -2))
+
+
+def edge_terms_qq(poses3, qq_from, qq_to, qq_z, qq_omega):
+    """SE3-SE3 terms: residuals (..., E, 6), A and B (..., E, 6, 6), chi2
+    contributions (..., E). A leading batch axis on poses3, qq_z and
+    qq_omega carries through; the edge indices are shared."""
+    x1 = poses3[..., qq_from, :]
+    x2 = poses3[..., qq_to, :]
+    e = residual_qq(x1, x2, qq_z)
+    a, b = linearize_qq(x1, x2, qq_z)
+    return e, a, b, quad_form(e, qq_omega)
 
 
 def edge_terms_pl(poses, landmarks, pl_pose, pl_lm, pl_z, pl_omega):

@@ -23,9 +23,14 @@ Backends: ``banded-kernel`` (the CUDA kernels; ``auto`` on the card),
 operator, its SpMV the CUDA kernel K3 on the card and plain on the CPU)
 and ``cg-banded-jnp`` (the plain SpMV everywhere; the JAX package's name).
 
-Not ported yet: robust kernels and GNC (``max_edge_chi2``,
-``robust_global_cost``), ``auto-measure``, the batched PCG backends of the
-fleet, marginals and covariances, and the ``PoseGraph`` wrapper.
+Every driver takes SE2 and SE3 graphs and the robust kernels of
+``assemble.robust_weight``: a robust LM run accepts a step on the robust
+surrogate (``robust_global_cost``) at the current GNC μ, and ``gnc-gm``
+anneals μ from μ0 (``max_edge_chi2``, capped at ``GNC_MU0_CAP``) to 1 at
+60% of the iteration budget; the loop does not stop while μ > 1.
+
+Not ported yet: ``auto-measure``, the batched PCG backends of the fleet,
+marginals and covariances, and the ``PoseGraph`` wrapper.
 """
 
 from __future__ import annotations
@@ -33,15 +38,18 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from rustrobotics_tpu_torch.device import resolve_device
 from rustrobotics_tpu_torch.mapping import solvers
 from rustrobotics_tpu_torch.mapping.assemble import (
+    GNC_MU0_CAP,
     PRIOR_WEIGHT,
     apply_update,
     build_layout,
-    require_se2,
+    odometry,
+    robust_rho,
     system_values,
 )
 from rustrobotics_tpu_torch.mapping.g2o import (
@@ -49,23 +57,86 @@ from rustrobotics_tpu_torch.mapping.g2o import (
     INDEX_FIELDS,
     PoseGraphData,
 )
-from rustrobotics_tpu_torch.mapping.linearize import residual_pl, residual_pp
+from rustrobotics_tpu_torch.mapping.linearize import (
+    quad_form,
+    residual_pl,
+    residual_pp,
+    residual_qq,
+)
 
 BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host", "cg",
             "cg-banded", "cg-banded-jnp")
 
 
+def _edge_chi2(graph: PoseGraphData):
+    """Per-edge e^T Ω e of the three edge families, (..., E) each; a
+    family without edges costs no device work."""
+    families = (
+        (residual_pp, graph.poses2, graph.pp_from, graph.poses2,
+         graph.pp_to, graph.pp_z, graph.pp_omega),
+        (residual_pl, graph.poses2, graph.pl_pose, graph.landmarks2,
+         graph.pl_lm, graph.pl_z, graph.pl_omega),
+        (residual_qq, graph.poses3, graph.qq_from, graph.poses3,
+         graph.qq_to, graph.qq_z, graph.qq_omega))
+    out = []
+    for residual, nodes_i, idx_i, nodes_j, idx_j, z, omega in families:
+        if idx_i.shape[0]:
+            e = residual(nodes_i[..., idx_i, :], nodes_j[..., idx_j, :], z)
+            out.append(quad_form(e, omega))
+        else:
+            out.append(z.new_zeros(graph.batch_shape + (0,)))
+    return out
+
+
 def global_error(graph: PoseGraphData) -> torch.Tensor:
     """Σ e^T Ω e over all edges, a tensor of the graph's batch shape (0-d
     for one graph) on its device."""
-    require_se2(graph)
-    e = residual_pp(graph.poses2[..., graph.pp_from, :],
-                    graph.poses2[..., graph.pp_to, :], graph.pp_z)
-    c_pp = torch.einsum("...ei,...eij,...ej->...e", e, graph.pp_omega, e)
-    e = residual_pl(graph.poses2[..., graph.pl_pose, :],
-                    graph.landmarks2[..., graph.pl_lm, :], graph.pl_z)
-    c_pl = torch.einsum("...ei,...eij,...ej->...e", e, graph.pl_omega, e)
-    return c_pp.sum(-1) + c_pl.sum(-1)
+    return sum(c.sum(-1) for c in _edge_chi2(graph))
+
+
+def max_edge_chi2(graph: PoseGraphData) -> torch.Tensor:
+    """Largest per-edge squared Mahalanobis error (0 at least), of the
+    graph's batch shape: seeds the GNC continuation parameter
+    mu0 = max(1, 2 r_max^2 / c^2)."""
+    mx = torch.zeros(graph.batch_shape, dtype=graph.dtype,
+                     device=graph.device)
+    for c in _edge_chi2(graph):
+        if c.shape[-1]:
+            mx = torch.maximum(mx, c.amax(-1))
+    return mx
+
+
+def robust_global_cost(graph: PoseGraphData, robust, delta, alpha=-2.0,
+                       mu=None, robust_edges="closures"):
+    """Sum of per-edge robust losses rho(e^T Ω e), the objective a robust
+    run minimizes; odometry pose-pose edges stay quadratic under
+    robust_edges="closures", as in system_values. robust=None gives the
+    raw χ² of ``global_error``. ``mu`` may carry the batch shape."""
+    c_pp, c_pl, c_qq = _edge_chi2(graph)
+    total = torch.zeros(graph.batch_shape, dtype=graph.dtype,
+                        device=graph.device)
+    for c, fr, to in ((c_pp, graph.pp_from, graph.pp_to),
+                      (c_pl, None, None),
+                      (c_qq, graph.qq_from, graph.qq_to)):
+        if not c.shape[-1]:
+            continue
+        rho = robust_rho(robust, c, delta, alpha=alpha, mu=mu)
+        if robust and robust_edges == "closures" and fr is not None:
+            rho = torch.where(odometry(fr, to), c, rho)
+        total = total + rho.sum(-1)
+    return total
+
+
+def gnc_mu0(graph: PoseGraphData, robust_delta) -> torch.Tensor:
+    """GNC's first μ, of the graph's batch shape: 2 r_max² / c² clamped
+    to [1, GNC_MU0_CAP]."""
+    mu0 = 2.0 * max_edge_chi2(graph) / (robust_delta * robust_delta)
+    return torch.clamp(torch.clamp(mu0, min=1.0), max=GNC_MU0_CAP)
+
+
+def gnc_iterations(num_iterations: int) -> int:
+    """The iteration at which GNC's μ reaches 1: 60% of the budget."""
+    return max(1, int(round(0.6 * num_iterations)))
 
 
 @dataclasses.dataclass
@@ -78,9 +149,10 @@ class OptimizeResult:
 
 def _make_solve(layout, backend: str, device: torch.device, cg_tol=1e-10,
                 cg_maxiter=None):
-    """solve(vals, b) -> dx for a backend name. ``cg_maxiter=None`` means
-    the JAX package's defaults: 4·n rounds for ``cg`` and
-    ``jax.scipy.sparse.linalg.cg``'s 10·n for the banded PCG."""
+    """solve(vals, b) -> dx for a backend name. ``cg`` always runs up to
+    4·n rounds (the JAX package's ``make_optimize_jit`` does not pass
+    ``cg_maxiter`` to it); the banded PCG takes ``cg_maxiter``, and None
+    means ``jax.scipy.sparse.linalg.cg``'s 10·n."""
     if backend == "auto":
         backend = "banded-kernel" if device.type == "cuda" else "banded-direct"
     if backend not in BACKENDS:
@@ -97,7 +169,7 @@ def _make_solve(layout, backend: str, device: torch.device, cg_tol=1e-10,
         return dense
     if backend == "cg":
         return lambda vals, b: solvers.solve_cg(dev_layout, vals, b,
-                                                tol=cg_tol, maxiter=cg_maxiter)
+                                                tol=cg_tol)
     if backend in ("cg-banded", "cg-banded-jnp"):
         from rustrobotics_tpu_torch.ops.banded import build_banded
 
@@ -121,14 +193,16 @@ def optimize(
     tolerance: float = 1e-4,
     prior_weight: float = PRIOR_WEIGHT,
     robust: str | None = None,
+    robust_delta: float = 1.0,
+    robust_alpha: float = -2.0,
     log: bool = False,
     callback=None,
     device=None,
 ) -> OptimizeResult:
-    """Host-driven optimization loop (reference semantics)."""
-    if robust is not None:
-        raise NotImplementedError(
-            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    """Host-driven optimization loop (reference semantics).
+    ``robust``/``robust_delta``/``robust_alpha``: optional IRLS
+    reweighting of outlier edges (``assemble.robust_weight``); "gnc-gm"
+    anneals μ from μ0 to 1 across the iterations."""
     if backend in ("cg-banded", "cg-banded-jnp"):
         # as in the JAX package, the banded PCG is make_optimize's alone
         raise ValueError(f"backend {backend!r} runs in make_optimize only")
@@ -137,6 +211,16 @@ def optimize(
     layout = build_layout(graph)
     dtype = graph.dtype
     solve_fn = _make_solve(layout, backend, device)
+    gnc = robust == "gnc-gm"
+    mu = mu0 = 1.0
+    # geometric continuation schedule reaching mu = 1 at 60% of the budget
+    k_gnc = gnc_iterations(num_iterations)
+    if gnc:
+        mu = mu0 = float(gnc_mu0(graph, robust_delta))
+
+    def cost(g, mu_):
+        return float(robust_global_cost(g, robust, robust_delta,
+                                        alpha=robust_alpha, mu=mu_))
 
     lm = solver in ("lm", "levenberg_marquardt")
     lam = 0.01  # λ0
@@ -147,17 +231,31 @@ def optimize(
         print(f"Loaded graph with {graph.num_nodes} nodes and "
               f"{graph.num_edges} edges")
         print(f"initial error :{last_error:.5f}")
+    cur_cost = None  # carried robust cost (valid while mu is constant)
 
     it = 0
     for it in range(1, num_iterations + 1):
-        vals, b, _ = system_values(graph, lam if lm else 0.0, prior_weight)
+        vals, b, _ = system_values(graph, lam if lm else 0.0, prior_weight,
+                                   robust=robust, robust_delta=robust_delta,
+                                   robust_alpha=robust_alpha, mu=mu)
         dx = solve_fn(vals, b).to(dtype)
         prev_graph = graph
         graph = apply_update(graph, dx)
         norm_dx = float(torch.linalg.vector_norm(dx))
         error = float(global_error(graph))
         if lm:
-            if not error <= last_error:  # NaN-safe reject
+            if robust is None:
+                accept = error <= last_error
+            else:
+                # accept on the robust surrogate at the current mu; a
+                # fixed kernel's mu never changes, so the previous
+                # iteration's cost is reused; GNC re-evaluates
+                trial = cost(graph, mu)
+                cur = cost(prev_graph, mu) if gnc or cur_cost is None \
+                    else cur_cost
+                accept = trial <= cur
+                cur_cost = trial if accept else cur
+            if not accept:  # NaN-safe reject
                 graph = prev_graph
                 lam *= 2.0
             else:
@@ -170,14 +268,31 @@ def optimize(
             print(f"step {it:3} : |dx| = {norm_dx:3.5f}, error = {error:3.5f}")
         if callback is not None:
             callback(it, graph, error, norm_dx, lam)
-        if norm_dx < tolerance:
+        if gnc:
+            mu = mu0 ** max(0.0, 1.0 - it / k_gnc)
+        # a GNC surrogate can converge while mu is still annealing: keep
+        # iterating until the continuation has reached the target loss
+        if norm_dx < tolerance and not (gnc and mu > 1.0):
             break
 
     return OptimizeResult(graph=graph, errors=errors, norms=norms,
                           iterations=it)
 
 
-_NODE_FIELDS = ("poses2", "landmarks2")
+_NODE_FIELDS = ("poses2", "landmarks2", "poses3")
+
+
+def _gnc_mu(mu0, it, k_gnc):
+    """μ(it) = μ0^(1 - it/k) clamped at 1, the device loops' schedule;
+    ``it`` is a count, or a tensor of counts (one a fleet row). The
+    fraction is taken in f32, as ``make_optimize_jit`` takes it (its
+    count is int32, and int32 / int is f32 in JAX)."""
+    if torch.is_tensor(it):
+        frac = torch.clamp(1.0 - it.float() / k_gnc, 0.0, 1.0)
+    else:
+        frac = float(np.clip(np.float32(1.0) - np.float32(it)
+                             / np.float32(k_gnc), 0.0, 1.0))
+    return torch.exp(torch.log(mu0) * frac).to(mu0.dtype)
 
 
 def make_optimize(
@@ -188,6 +303,8 @@ def make_optimize(
     tolerance: float = 1e-4,
     prior_weight: float = PRIOR_WEIGHT,
     robust: str | None = None,
+    robust_delta: float = 1.0,
+    robust_alpha: float = -2.0,
     cg_tol: float = 1e-10,
     cg_maxiter: int | None = None,
     device=None,
@@ -196,34 +313,51 @@ def make_optimize(
     Returns run(graph) -> (graph, errors (iters+1,), iterations): the
     errors tensor is NaN past the last recorded entry.
 
-    ``cg_tol`` and ``cg_maxiter`` set the PCG of the ``cg`` and
-    ``cg-banded`` backends (``cg_maxiter=None``: 4·n rounds for ``cg``,
-    10·n for ``cg-banded``). f32 does not reach the default 1e-10, so an
-    f32 run passes its own, e.g. ``cg_tol=1e-6, cg_maxiter=400``. On the
-    card ``cg-banded`` needs an f32 graph: K3 is f32 only.
+    ``cg_tol`` sets the PCG of the ``cg`` and ``cg-banded`` backends and
+    ``cg_maxiter`` that of ``cg-banded`` (None: 10·n rounds); ``cg`` runs
+    up to 4·n rounds whatever ``cg_maxiter`` says, as the JAX package's
+    ``make_optimize_jit`` does. f32 does not reach the default 1e-10, so
+    an f32 run passes its own, e.g. ``cg_tol=1e-6, cg_maxiter=400``. On
+    the card ``cg-banded`` needs an f32 graph: K3 is f32 only. ``host`` is
+    not a device backend and raises ValueError, as in the JAX package.
+
+    Robust runs (``robust``, ``robust_delta``, ``robust_alpha``) mirror
+    ``make_optimize_jit``: LM accepts a step on the robust surrogate at
+    the current GNC μ, μ(it) anneals from μ0 to 1 at 60% of the budget,
+    and a GNC loop does not stop on ‖dx‖ before then.
 
     The loop keeps every value on the device. Its one host read per
     iteration is the convergence test ``‖dx‖ < tolerance``, skipped when
     tolerance <= 0 (nothing can pass it); capturing the step in a CUDA
     graph is later work."""
-    if robust is not None:
-        raise NotImplementedError(
-            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    if backend == "host":
+        raise ValueError(f"jit path needs a device backend, got {backend!r}")
     device = resolve_device(device)
-    require_se2(graph_template)
     layout = build_layout(graph_template)
     solve = _make_solve(layout, backend, device, cg_tol=cg_tol,
                         cg_maxiter=cg_maxiter)
     lm = solver in ("lm", "levenberg_marquardt")
+    gnc = robust == "gnc-gm"
+    k_gnc = gnc_iterations(num_iterations)
+    robust_kw = dict(robust=robust, robust_delta=robust_delta,
+                     robust_alpha=robust_alpha)
 
-    def step_lm(g, lam, last_error, it, errors):
-        vals, b, _ = system_values(g, lam, prior_weight)
+    def step_lm(g, lam, last_error, mu, errors, it):
+        vals, b, _ = system_values(g, lam, prior_weight, mu=mu, **robust_kw)
         dx = solve(vals, b)
         new_g = apply_update(g, dx)
         error = global_error(new_g)
         # NaN-safe reject: a non-finite trial error (e.g. f32 Cholesky
         # breakdown at small λ) counts as a rejection
-        reject = ~(error <= last_error)
+        if robust is None:
+            reject = ~(error <= last_error)
+        else:
+            # the robust surrogate at the current mu, on both sides
+            trial = robust_global_cost(new_g, robust, robust_delta,
+                                       alpha=robust_alpha, mu=mu)
+            cur = robust_global_cost(g, robust, robust_delta,
+                                     alpha=robust_alpha, mu=mu)
+            reject = ~(trial <= cur)
         g = g.replace(**{f: torch.where(reject, getattr(g, f),
                                         getattr(new_g, f))
                          for f in _NODE_FIELDS})
@@ -235,10 +369,11 @@ def make_optimize(
         last_error = torch.where(torch.isnan(error), last_error, error)
         return g, lam, last_error, dx
 
-    def step_gn(g, errors, it):
+    def step_gn(g, mu, errors, it):
         # system_values' χ² is the error of the current graph, so GN needs
         # no separate global_error per iteration
-        vals, b, chi2 = system_values(g, 0.0, prior_weight)
+        vals, b, chi2 = system_values(g, 0.0, prior_weight, mu=mu,
+                                      **robust_kw)
         errors[it] = chi2
         dx = solve(vals, b)
         return apply_update(g, dx), dx
@@ -249,19 +384,22 @@ def make_optimize(
         errors = torch.full((num_iterations + 1,), math.nan, dtype=dtype,
                             device=device)
         lam = torch.tensor(0.01, dtype=dtype, device=device)
+        mu0 = gnc_mu0(g, robust_delta) if gnc else None
         if lm:
             errors[0] = global_error(g)
             last_error = errors[0].clone()
         it = 0
         while it < num_iterations:
+            mu = _gnc_mu(mu0, it, k_gnc) if gnc else None
             if lm:
-                g, lam, last_error, dx = step_lm(g, lam, last_error, it,
-                                                 errors)
+                g, lam, last_error, dx = step_lm(g, lam, last_error, mu,
+                                                 errors, it)
             else:
-                g, dx = step_gn(g, errors, it)
+                g, dx = step_gn(g, mu, errors, it)
             it += 1
-            if tolerance > 0 and bool(torch.linalg.vector_norm(dx)
-                                      < tolerance):
+            # a GNC surrogate can converge while mu is still annealing
+            if (tolerance > 0 and (not gnc or it >= k_gnc)
+                    and bool(torch.linalg.vector_norm(dx) < tolerance)):
                 break
         if not lm:
             errors[it] = global_error(g)
@@ -293,6 +431,7 @@ def stack_graphs(graphs) -> PoseGraphData:
         for name in FLOAT_FIELDS})
 
 
+
 def make_optimize_batch(
     graph_template: PoseGraphData,
     num_iterations: int = 50,
@@ -301,6 +440,8 @@ def make_optimize_batch(
     tolerance: float = 1e-4,
     prior_weight: float = PRIOR_WEIGHT,
     robust: str | None = None,
+    robust_delta: float = 1.0,
+    robust_alpha: float = -2.0,
     cg_tol: float = 1e-10,
     cg_maxiter: int | None = None,
     device=None,
@@ -320,14 +461,14 @@ def make_optimize_batch(
 
     The loop has the semantics of JAX's batched ``while_loop``: it runs
     while any row's condition (it < num_iterations and not ‖dx‖ <
-    tolerance) holds, and a row whose condition has failed keeps its
-    state (nodes, λ, last error, iteration count, ‖dx‖, trace) from then
-    on. So row i's errors, NaN tail and iteration count equal
-    ``make_optimize`` on graph i. The one host read per iteration is the
-    any-row-active test, skipped when tolerance <= 0."""
-    if robust is not None:
-        raise NotImplementedError(
-            "robust kernels are not ported to rustrobotics_tpu_torch yet")
+    tolerance, and under GNC not before it = 60% of the budget) holds, and
+    a row whose condition has failed keeps its state (nodes, λ, last
+    error, iteration count, ‖dx‖, trace) from then on. A robust run takes
+    each row's own μ0 (``max_edge_chi2``), μ(it) at its own iteration
+    count and its own accept test. So row i's errors, NaN tail and
+    iteration count equal ``make_optimize`` on graph i. The one host read
+    per iteration is the any-row-active test, skipped when tolerance <=
+    0."""
     if backend == "host":
         raise ValueError(f"the batched loop needs a device backend, got "
                          f"{backend!r}")
@@ -336,10 +477,13 @@ def make_optimize_batch(
             f"backend {backend!r} has no batched form yet (a batched PCG "
             f"with per-row round counts; ROADMAP Queue 1)")
     device = resolve_device(device)
-    require_se2(graph_template)
     solve = _make_solve(build_layout(graph_template), backend, device)
     lm = solver in ("lm", "levenberg_marquardt")
+    gnc = robust == "gnc-gm"
     n_it = num_iterations
+    k_gnc = gnc_iterations(num_iterations)
+    robust_kw = dict(robust=robust, robust_delta=robust_delta,
+                     robust_alpha=robust_alpha)
 
     def select(active, new, old):
         """new where the row is active, else old (rows on the first axis)."""
@@ -365,29 +509,42 @@ def make_optimize_batch(
         norm_dx = torch.full((batch,), math.inf, dtype=dtype, device=device)
         last_error = torch.full((batch,), math.inf, dtype=dtype,
                                 device=device)
+        mu0 = gnc_mu0(g, robust_delta) if gnc else None
         if lm:
             errors[:, 0] = global_error(g)
             last_error = errors[:, 0].clone()
         for _ in range(n_it):
-            active = (it < n_it) & ~(norm_dx < tolerance)
+            converged = norm_dx < tolerance
+            if gnc:
+                converged = converged & (it >= k_gnc)
+            active = (it < n_it) & ~converged
             if tolerance > 0 and not bool(active.any()):
                 break
+            mu = _gnc_mu(mu0, it, k_gnc) if gnc else None
             new_lam, new_last = lam, last_error
             if lm:
-                vals, b, _ = system_values(g, lam, prior_weight)
+                vals, b, _ = system_values(g, lam, prior_weight, mu=mu,
+                                           **robust_kw)
                 dx = solve(vals, b)
                 trial = apply_update(g, dx)
                 error = global_error(trial)
                 # NaN-safe reject, and the trial error recorded
                 # unconditionally, as in make_optimize
-                reject = ~(error <= last_error)
+                if robust is None:
+                    reject = ~(error <= last_error)
+                else:
+                    reject = ~(robust_global_cost(
+                        trial, robust, robust_delta, alpha=robust_alpha,
+                        mu=mu) <= robust_global_cost(
+                        g, robust, robust_delta, alpha=robust_alpha, mu=mu))
                 new_g = {f: select(reject, getattr(g, f), getattr(trial, f))
                          for f in _NODE_FIELDS}
                 new_lam = torch.where(reject, lam * 2.0, lam / 2.0)
                 new_errors = put(errors, it + 1, error)
                 new_last = torch.where(torch.isnan(error), last_error, error)
             else:
-                vals, b, chi2 = system_values(g, 0.0, prior_weight)
+                vals, b, chi2 = system_values(g, 0.0, prior_weight, mu=mu,
+                                              **robust_kw)
                 new_errors = put(errors, it, chi2)
                 dx = solve(vals, b)
                 trial = apply_update(g, dx)

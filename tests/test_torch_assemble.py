@@ -107,13 +107,15 @@ def test_edge_terms_match(graphs):
 
 
 def test_unported_features_raise(graphs):
+    """An unknown robust kernel raises ValueError, in the assembly and in
+    the robust cost; SE3 edges and the robust kernels run (their parity
+    is in tests/test_torch_se3.py and tests/test_torch_robust.py)."""
     _, port = graphs
-    with pytest.raises(NotImplementedError):
-        tasm.system_values(port, 0.0, robust="huber")
-    se3 = port.replace(poses3=torch.zeros(2, 7, dtype=torch.float64),
-                       qq_from=torch.zeros(1, dtype=torch.int64),
-                       qq_to=torch.ones(1, dtype=torch.int64))
-    with pytest.raises(NotImplementedError):
-        tasm.system_values(se3, 0.0)
-    with pytest.raises(NotImplementedError):
-        tpgo.global_error(se3)
+    with pytest.raises(ValueError, match="robust"):
+        tasm.system_values(port, 0.0, robust="tukey")
+    with pytest.raises(ValueError, match="robust"):
+        tpgo.robust_global_cost(port, "tukey", 1.0)
+    v, _, c = tasm.system_values(port, 0.0, robust="huber")
+    assert v.shape == tasm.system_values(port, 0.0)[0].shape
+    assert float(c) == pytest.approx(float(tpgo.global_error(port)),
+                                     rel=1e-12)

@@ -203,11 +203,12 @@ def test_solve_cg_banded_matches(case):
 _JAX_RUNS = {}
 
 
-def jax_trace(ref, solver, backend):
-    key = (solver, backend)
+def jax_trace(ref, solver, backend, cg_maxiter=None):
+    key = (solver, backend, cg_maxiter)
     if key not in _JAX_RUNS:
         run = jpgo.make_optimize_jit(ref, num_iterations=ITERS, solver=solver,
-                                     backend=backend, tolerance=0.0)
+                                     backend=backend, tolerance=0.0,
+                                     cg_maxiter=cg_maxiter)
         g, errors, it = run(ref)
         _JAX_RUNS[key] = (g, np.asarray(errors), int(it))
     return _JAX_RUNS[key]
@@ -217,13 +218,18 @@ def jax_trace(ref, solver, backend):
     ("cg", "cg"), ("cg-banded", "cg-banded-jnp"),
     ("cg-banded-jnp", "cg-banded-jnp")])
 @pytest.mark.parametrize("solver", ["gauss_newton", "lm"])
-def test_make_optimize_cg_matches_jit(case, solver, backend, jax_backend):
-    """JAX's defaults (cg_tol 1e-10; 4·n rounds for cg, 10·n for the
-    banded PCG): χ² entries above 1e-6 within 1e-6, poses within 1e-8."""
-    g_ref, want, it_ref = jax_trace(case["ref"], solver, jax_backend)
+@pytest.mark.parametrize("cg_maxiter", [None, 3])
+def test_make_optimize_cg_matches_jit(case, solver, backend, jax_backend,
+                                      cg_maxiter):
+    """cg_tol 1e-10 (JAX's default). cg_maxiter None: 4·n rounds for cg,
+    10·n for the banded PCG; 3: the banded PCG stops at 3 rounds and cg,
+    which takes no cg_maxiter in either package, still runs to 4·n. χ²
+    entries above 1e-6 within 1e-6, poses within 1e-8."""
+    g_ref, want, it_ref = jax_trace(case["ref"], solver, jax_backend,
+                                    cg_maxiter)
     run = tpgo.make_optimize(case["port"], num_iterations=ITERS,
                              solver=solver, backend=backend, tolerance=0.0,
-                             device="cpu")
+                             cg_maxiter=cg_maxiter, device="cpu")
     g, errors, it = run(case["port"])
     assert it == it_ref == ITERS
     got = errors.numpy()

@@ -9,6 +9,9 @@ machine run it without conftest:
 Every test here needs a CUDA card and skips without one.
 """
 
+import importlib.util
+import pathlib
+
 import pytest
 import torch
 
@@ -260,7 +263,7 @@ def test_factorize_launches_per_block_row(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,kb", [(3, 256), (8, 512)])
+@pytest.mark.parametrize("batch,kb", [(3, 256), (4, 384), (8, 512)])
 def test_batched_kernels_match_per_graph(cuda_device, batch, kb):
     """K1/K2 over a batch axis: graph i of the batch equals the unbatched
     kernels on graph i bit for bit, with one launch a call."""
@@ -307,3 +310,77 @@ def test_fleet_runs_the_kernels(cuda_device, monkeypatch):
         assert big.sum() >= 2
         torch.testing.assert_close(errors[i][big], want[big], rtol=1e-2,
                                    atol=0)
+
+
+def _sphere(device, rings=30):
+    """chip_smoke.sphere_graph at 30 rings of 50 poses (n = 9000): its
+    band plan is kb = 384, nb = 24, the block size of sphere-2500."""
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke",
+        pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    g = cs.port_graph(cs.sphere_graph(rings=rings), device)
+    rng = np.random.default_rng(0)
+    copies = [g] + [g.replace(poses3=torch.as_tensor(
+        cs.jitter_poses3(g.poses3.cpu().numpy(), rng), device=device))
+        for _ in range(3)]
+    return [c.to(dtype=torch.float32) for c in copies]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_band_assemble_kb384_matches_plain(cuda_device, batched):
+    """K4 (one 3D graph) and K5 (B = 4) at kb = 384 against the plain
+    index_add_ with the kb = 512 tolerance (16 f32 units of the sum of
+    each entry's |contributions|), and bit-equal to the CPU's plan-order
+    index_add_."""
+    graphs = _sphere(cuda_device)
+    bl = build_band_chol(build_layout(graphs[0]))
+    assert (bl.kb, bl.nb) == (384, 24)
+    vals = system_values(stack_graphs(graphs) if batched else graphs[0],
+                         0.01)[0]
+    key = "assemble_batch" if batched else "assemble_b1"
+    before = bak.LAUNCHES[key]
+    dev_bl = bl.to(cuda_device)
+    got = bak.band_assemble_kernel(dev_bl, vals)
+    torch.cuda.synchronize()
+    assert bak.LAUNCHES[key] == before + 1
+    want = bak.band_assemble_plain(dev_bl, vals)
+    scale = bak.band_assemble_plain(dev_bl, vals.abs())
+    assert bool(((got - want).abs() <= 16 * 2.0 ** -24 * scale).all())
+    on_cpu = bak.band_assemble_plain(bl, vals.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), on_cpu.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sphere_kernels_track_plain(cuda_device):
+    """A 3D graph at kb = 384 through banded-kernel: K4, K1 and K2
+    launch, the solve at the first LM step's damping agrees with the plain
+    f32 solve (PARITY_TOL["solve"] of chip_smoke), and the LM χ² trace
+    tracks banded-direct's; the fleet of 4 launches K5."""
+    graphs = _sphere(cuda_device)
+    g = graphs[0]
+    bl = build_band_chol(build_layout(g)).to(cuda_device)
+    vals, b, _ = system_values(g, 0.01)
+    x_plain = solve_band_chol(bl, vals, b)
+    before = {**bk.LAUNCHES, **bak.LAUNCHES}
+    x_kern = bk.solve_band_kernel(bl, vals, b)
+    rel = float((x_kern - x_plain).abs().max() / x_plain.abs().max())
+    assert rel <= 3e-3, rel
+    kw = dict(num_iterations=4, solver="lm", tolerance=0.0)
+    err_k = make_optimize(g, backend="banded-kernel", **kw)(g)[1]
+    err_p = make_optimize(g, backend="banded-direct", **kw)(g)[1]
+    for key in ("assemble_b1", "factorize", "substitute"):
+        assert {**bk.LAUNCHES, **bak.LAUNCHES}[key] > before[key], key
+    big = err_p > 1.0
+    assert big.sum() >= 2
+    torch.testing.assert_close(err_k[big], err_p[big], rtol=1e-2, atol=0)
+    before = bak.LAUNCHES["assemble_batch"]
+    _, errors, it = make_optimize_batch(g, backend="banded-kernel",
+                                        **kw)(stack_graphs(graphs))
+    assert it.tolist() == [4] * 4
+    assert bak.LAUNCHES["assemble_batch"] == before + 4
+    assert torch.isfinite(errors).all()

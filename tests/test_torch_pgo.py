@@ -108,7 +108,17 @@ def test_unknown_backend_raises(graphs):
     _, port = graphs
     with pytest.raises(ValueError, match="backend"):
         tpgo.make_optimize(port, backend="schur", device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpgo.make_optimize(port, robust="huber", device="cpu")
+    with pytest.raises(ValueError, match="robust"):
+        tpgo.make_optimize(port, robust="tukey", device="cpu")(port)
     assert float(tpgo.global_error(port)) == pytest.approx(
         float(jpgo.global_error(graphs[0])), rel=1e-12)
+
+
+def test_make_optimize_host_raises(graphs):
+    """As make_optimize_jit: the device loop takes no host backend, while
+    the host loop keeps it."""
+    _, port = graphs
+    with pytest.raises(ValueError, match="device backend, got 'host'"):
+        tpgo.make_optimize(port, backend="host", device="cpu")
+    assert tpgo.optimize(port, num_iterations=1, backend="host",
+                         device="cpu").iterations == 1
