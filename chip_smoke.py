@@ -35,7 +35,9 @@ Phases; any failure ends the script with a non-zero exit code:
    The same for sphere-2500 (sphere_graph: sphere2500's shape, 2500 SE3
    poses, 4949 edges, n=15000, kb=384, nb=40): K1, K2 and the solve at
    λ = 0.01 (SPHERE_PARITY_TOL), K4 on its triplets, K5 and batched K1/K2
-   on its fleet of SPHERE_FLEET (the graph and jittered copies);
+   on its fleet of SPHERE_FLEET (the graph and jittered copies). K3 over
+   the fleet of 8's bands at λ = 0.01: one launch bit-equal to eight
+   one-graph calls, and within K3_ULPS of the plain version;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    a. make_optimize(backend="banded-kernel") on corridor-1728 in f32,
@@ -69,6 +71,19 @@ Phases; any failure ends the script with a non-zero exit code:
       errors[0] held to the f64 anchor, the trace to banded-direct on the
       card, the χ² of the clean edges at the final poses to the JAX f64
       run's; K4's, K1's and K2's counters must move;
+   f. make_optimize_batch(backend="cg-banded") on the fleet of 8, GN 10:
+      each row against make_optimize(backend="cg-banded") on its graph
+      (FLEET_CG_RTOL), one K3 launch a fleet PCG round and no plain SpMV;
+      CG rounds per row per solve and graph-iterations/s printed;
+   g. marginal_variances and pose_covariances through K4 + K1 (f32) on
+      corridor-1728, marginal_variances on sphere-2500, against the plain
+      f32 chain and the f64 run on the card (MARGINAL_RULE,
+      MARGINAL_TOL), with their launches and times;
+   h. GN 10 on corridor-1728 with banded-cr, banded-mixed (lp "high" and
+      "bf16", CG rounds printed), schur and native (f64 on the host, no
+      SuperLU solve), each held to the banded-kernel path's χ² anchors;
+   i. auto-measure on corridor-1728 and sphere-2500: each candidate's time
+      and the winner;
 5. times from CUDA events: each kernel, its plain version and a library
    yardstick, each beside its bound, as device time a call with the calls
    queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
@@ -82,8 +97,9 @@ Phases; any failure ends the script with a non-zero exit code:
    by kernel and the device's idle share; K1's device launches per
    factorization and the panel kernel's µs per launch;
 7. one JSON line describing the kernels (K1, K2, K4 and K5 with their
-   kb = 384 readings under *_3d keys), then the contract line
-   {"ok": true, "device": {...}} last.
+   kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
+   under *_b8 keys), then the contract line {"ok": true, "device": {...}}
+   last.
 """
 
 from __future__ import annotations
@@ -182,6 +198,29 @@ SPHERE_DIRECT_RTOL = 1e-3
 SPHERE_FLEET_RTOL = 1e-4
 GNC_TRACE_RTOL = 3e-6
 GNC_INLIER_ATOL = 3e-6
+
+# The fleet's cg-banded (the fleet of 8, GN 10, CG_TOL and CG_MAXITER):
+# every row's χ² entries above 1 against its one-graph cg-banded run, about
+# 10x the first H100 reading (4.28e-3: band_values' atomic order differs).
+FLEET_CG_RTOL = 5e-2
+# Marginals in f32 through K4 + K1: the largest per-dof relative
+# difference of the variances (and of each pose block's entries relative to
+# its largest) from the f64 run of the same function on the card and from
+# the plain f32 chain on the card. corridor-1728's undamped H is beyond
+# f32: its Jacobi-scaled condition number is ~2e8 (the port in f64 on the
+# CPU), and its f32 variances read 0.65 per dof from f64 on the plain chain
+# (a dense f32 inverse 0.46). There the kernel chain is held to the plain
+# f32 chain's own distance from f64, within MARGINAL_RULE x (the rule of
+# tests/test_band_pallas.py). sphere-2500 is well conditioned: the first
+# H100 run read 0.171 (K4 + K1 against f64), 0.137 (against the plain
+# chain) and 0.039 (plain against f64); its limits are about 3x those, as
+# 10x would pass a relative error above 1.
+MARGINAL_RULE = 4.0
+MARGINAL_TOL = {"sphere-2500": {"f64": 0.5, "plain": 0.5}}
+# Solver backends on corridor-1728, GN 10 (f32; native in f64 on the host):
+# held to GN_CHI2 as the banded-kernel path is.
+BACKEND_RUNS = ("banded-cr", "banded-mixed high", "banded-mixed bf16",
+                "schur", "native")
 
 
 def fail(msg):
@@ -482,6 +521,7 @@ def kernel_errors(bl, vals, b):
     from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
     from rustrobotics_tpu_torch.ops.band_chol import (
         _prepare_blocks,
+        scale_rhs,
         solve_band_chol,
         split_blocks,
     )
@@ -491,7 +531,7 @@ def kernel_errors(bl, vals, b):
     ld_k, lp_k = bk.factorize_kernel(dsym, lcoup)
     ld_p, lp_p = bk.factorize_plain(dsym, lcoup)
     # K2 on the plain factor, with this system's scaled right-hand side
-    bp = scaled_rhs(bl, b.float(), dinv_p)
+    bp = scale_rhs(bl, b.float(), dinv_p)
     x_k = bk.substitute_kernel(ld_p, lp_p, bp)
     x_p = bk.substitute_plain(ld_p, lp_p, bp)
     x_kern = bk.solve_band_kernel(bl, vals, b)
@@ -1054,17 +1094,24 @@ def assemble_errors(bl, vals):
 
 def device_ops(fn):
     """The names of the device operations (kernels, memsets, copies) that
-    one call of fn runs, by torch.profiler, after a warm-up call."""
+    one call of fn runs, by torch.profiler, after a warm-up call. The
+    profiler once returned no device event at all for such a call on the
+    H100 (K5 at B = 8, where every earlier run had read one kernel), so an
+    empty reading is taken again, once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return ops
 
 
 def assemble_parity(name, bl, vals):
@@ -1092,16 +1139,6 @@ def assemble_parity(name, bl, vals):
     return e
 
 
-def scaled_rhs(bl, b, dinv_p):
-    """b (..., n) permuted, padded and Jacobi-scaled: (..., nb, kb)."""
-    import torch
-
-    bp = b[..., bl.perm]
-    bp = torch.cat([bp, bp.new_zeros(bp.shape[:-1] + (bl.nb * bl.kb - bl.n,))],
-                   -1)
-    return (bp * dinv_p).view(bp.shape[:-1] + (bl.nb, bl.kb))
-
-
 def fleet_parity(bl, graphs64, name="corridor-1728", tol=PARITY_TOL):
     """Phase 3 for a fleet: K5 on the fleet's λ = 0.01 triplets, then
     K1/K2 over the batch axis against the unbatched K1/K2 on each graph.
@@ -1116,6 +1153,7 @@ def fleet_parity(bl, graphs64, name="corridor-1728", tol=PARITY_TOL):
     )
     from rustrobotics_tpu_torch.ops.band_chol import (
         _prepare_blocks,
+        scale_rhs,
         split_blocks,
     )
 
@@ -1130,7 +1168,7 @@ def fleet_parity(bl, graphs64, name="corridor-1728", tol=PARITY_TOL):
 
     r_blocks, dinv_p = _prepare_blocks(bl, vals, band_assemble_kernel)
     dsym, lcoup = split_blocks(r_blocks)
-    bp = scaled_rhs(bl, b, dinv_p)
+    bp = scale_rhs(bl, b, dinv_p)
     ld_b, lp_b = bk.factorize_kernel(dsym, lcoup)
     x_b = bk.substitute_kernel(ld_b, lp_b, bp)
     k1 = lp = k2 = 0.0
@@ -1482,9 +1520,9 @@ def sphere_path(device, graphs64):
     return gn, g32, lm_fleet, fleet, launches, fleet_launches
 
 
-def fleet_rate(name, one, g, fleet_run, fleet, iters):
+def fleet_rate(name, one, g, fleet_run, fleet, iters, repeats=5):
     """Graph-iterations/s of a fleet runner against one graph's, measured
-    in turns (median of 5 runs of ``iters`` iterations each)."""
+    in turns (median of ``repeats`` runs of ``iters`` iterations each)."""
     import torch
 
     batch = fleet.batch_shape[0]
@@ -1493,7 +1531,7 @@ def fleet_rate(name, one, g, fleet_run, fleet, iters):
     for run, arg in runs.values():
         run(arg)
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(repeats):
         for key, (run, arg) in runs.items():
             t0 = time.perf_counter()
             run(arg)
@@ -1504,8 +1542,8 @@ def fleet_rate(name, one, g, fleet_run, fleet, iters):
     print(f"[times] {name}, graph-iterations/s: B={batch} fleet "
           f"{rate[batch]:.4f} ({ms[batch]:.4f} ms a fleet iteration), B=1 "
           f"{rate[1]:.4f} ({ms[1]:.4f} ms an iteration); ratio "
-          f"{rate[batch] / rate[1]:.4f} (median of 5 runs of {iters} "
-          f"iterations each, in turns)", flush=True)
+          f"{rate[batch] / rate[1]:.4f} (median of {repeats} runs of "
+          f"{iters} iterations each, in turns)", flush=True)
 
 
 def gnc_graphs(device):
@@ -1574,6 +1612,361 @@ def gnc_path(device):
         require(launches[key] > 0,
                 f"{key} kernel launched on the corridor-1728-gnc path")
     return lm, bad, launches
+
+
+def k3_fleet_parity(graphs64):
+    """Phase 3 for K3 over a batch axis: the fleet of 8's bands at the
+    first LM step's damping, its right-hand sides as x. The batched call
+    against eight one-graph calls (bit-equal expected) and against the
+    plain version (K3_ULPS). Returns the inputs and the errors."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import stack_graphs
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+    from rustrobotics_tpu_torch.ops.banded import _pad_x_blocks, band_values
+
+    fleet = stack_graphs([g.to(dtype=torch.float32) for g in graphs64])
+    layout, blayout, vals, b = cg_system(fleet, LM_LAMBDA0)
+    hb = band_values(blayout, layout, vals)
+    xp = _pad_x_blocks(blayout, b[..., blayout.perm])
+    batch = hb.shape[0]
+    y = bmk.banded_matvec_kernel(hb, xp)
+    equal = all(torch.equal(y[i], bmk.banded_matvec_kernel(
+        hb[i].contiguous(), xp[i].contiguous())) for i in range(batch))
+    e = k3_errors(hb, xp)
+    print(f"[parity] K3 fleet: B={batch}, hb {tuple(hb.shape)}, λ="
+          f"{LM_LAMBDA0}: max row error {e['ulps']:.6g} x the bound's unit "
+          f"(TF32-rounded operands: {e['tf32_ulps']:.6g}); max|y_k - "
+          f"y_plain| {e['max_abs_err']:.6g} of max|y| {e['y_max']:.6g}; every "
+          f"graph bit-equal to its one-graph call: {equal}", flush=True)
+    require(e["finite"], "batched K3 output finite")
+    require(equal, f"batched K3 bit-equal to {batch} one-graph calls")
+    require(e["ulps"] <= K3_ULPS,
+            f"batched K3 within {K3_ULPS} x kb*128 f32 units per row")
+    return dict(hb=hb, xp=xp, err=e)
+
+
+def k3_fleet_times(k3b):
+    """K3's batched time, the plain version's and one batched torch.bmm's,
+    each with L2 flushed before the call, beside the bound: every hb byte
+    of the fleet read once (B x 24.23 MB at corridor-1728), xp read once,
+    y written once."""
+    import torch
+
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+    from rustrobotics_tpu_torch.ops.banded import banded_matvec_plain
+
+    hb, xp = k3b["hb"], k3b["xp"]
+    batch, nb, kb = hb.shape[:3]
+    hb_rows = hb.permute(0, 1, 3, 2, 4).reshape(batch * nb, 128, kb * 128)
+    # the windows of each graph's xp, expanded here (1.5 MB), outside the
+    # timed region: a strided view across graphs would be copied by bmm
+    windows = xp.as_strided((batch, nb, kb * 128),
+                            ((nb + kb - 1) * 128, 128, 1)).reshape(
+        batch * nb, kb * 128, 1).contiguous()
+    lib_err = float((torch.bmm(hb_rows, windows).view(batch, -1)
+                     - banded_matvec_plain(hb, xp)).abs().max())
+    nbytes = 4 * (hb.numel() + xp.numel() + batch * nb * 128)
+    bound, by = bound_ms(nbytes, 2.0 * hb.numel())
+    junk = torch.empty(64 * 2 ** 20, device=hb.device)
+    out = dict(
+        ms_b8=queued_ms(lambda: bmk.banded_matvec_kernel(hb, xp), calls=10,
+                        repeats=3, flush=junk.sum),
+        plain_ms_b8=queued_ms(lambda: banded_matvec_plain(hb, xp), calls=10,
+                              repeats=3, flush=junk.sum),
+        library_ms_b8=queued_ms(lambda: torch.bmm(hb_rows, windows),
+                                calls=10, repeats=3, flush=junk.sum),
+        bound_ms_b8=bound, max_abs_err_b8=k3b["err"]["max_abs_err"])
+    print(f"[times] banded_matvec B={batch}, L2 flushed before each call: "
+          f"kernel {out['ms_b8']:.6f} ms, plain {out['plain_ms_b8']:.6f} ms, "
+          f"batched torch.bmm yardstick {out['library_ms_b8']:.6f} ms "
+          f"(max|bmm - plain| {lib_err:.3g}), bound {bound:.6f} ms ({by}; "
+          f"{nbytes:.4g} B), kernel/bound {out['ms_b8'] / bound:.2f}",
+          flush=True)
+    return out
+
+
+def fleet_cg_path(device, graphs64):
+    """Phase 4f: make_optimize_batch(backend="cg-banded") on the fleet of 8
+    in f32, GN 10, CG_TOL and CG_MAXITER: each row against
+    make_optimize(backend="cg-banded") on that graph; K3 launched once a
+    fleet PCG round and the plain SpMV never; rounds per row per solve and
+    the fleet's graph-iterations/s against one graph's. Returns the
+    fleet's counts."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import (
+        make_optimize,
+        make_optimize_batch,
+        stack_graphs,
+    )
+    from rustrobotics_tpu_torch.ops import banded
+    from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+
+    graphs = [g.to(dtype=torch.float32) for g in graphs64]
+    fleet = stack_graphs(graphs)
+    kw = dict(num_iterations=10, backend="cg-banded", tolerance=0.0,
+              cg_tol=CG_TOL, cg_maxiter=CG_MAXITER, device=device)
+    run = make_optimize_batch(graphs[0], **kw)
+    plain = banded.banded_matvec_plain
+    plain_calls = [0]
+
+    def counted_plain(*args):
+        plain_calls[0] += 1
+        return plain(*args)
+
+    banded.banded_matvec_plain = counted_plain
+    bmk.banded_matvec_plain = counted_plain
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        with recorded_rounds() as rounds:
+            _, err, it = run(fleet)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        banded.banded_matvec_plain = plain
+        bmk.banded_matvec_plain = plain
+    one = make_optimize(graphs[0], **kw)
+    rows = torch.stack([one(g)[1] for g in graphs]).double().cpu()
+    err = err.double().cpu()
+    per_solve = [r.tolist() for r in rounds]
+    fleet_rounds = sum(max(r) for r in per_solve)
+    worst = max(max_rel(err[i], rows[i], rows[i] > 1.0)
+                for i in range(len(graphs)))
+    for i in range(len(graphs)):
+        print(f"[main] fleet cg-banded GN row {i}: {err[i].tolist()}",
+              flush=True)
+    print(f"[main] fleet cg-banded CG rounds per solve, one list a solve "
+          f"(rows 0..{len(graphs) - 1}): {per_solve}; fleet rounds "
+          f"{fleet_rounds}; K3 launches {launches['banded_matvec']}; plain "
+          f"SpMV calls {plain_calls[0]}; worst row against its one-graph "
+          f"run (entries above 1) {worst:.6g}; errors[10] per row "
+          f"{err[:, 10].tolist()}; first run {wall * 1e3:.4f} ms (host "
+          f"clock)", flush=True)
+    require(it.tolist() == [10] * len(graphs),
+            "fleet cg-banded iteration counts 10 in every row")
+    require(bool(torch.isfinite(err).all()), "fleet cg-banded χ² finite")
+    require(abs(err[0, 0] / GN_CHI2[0] - 1) <= 1e-4
+            and abs(err[0, 1] / CG_GN_CHI2_1 - 1) <= CG_CHI2_1_RTOL,
+            f"fleet cg-banded row 0 at the f64 anchors (errors[1] "
+            f"{err[0, 1]:.6f})")
+    require(worst <= FLEET_CG_RTOL,
+            f"every fleet cg-banded row within {FLEET_CG_RTOL} of its "
+            f"one-graph cg-banded run (entries above 1)")
+    require(launches["banded_matvec"] == fleet_rounds > 0,
+            "K3 launched once a fleet PCG round, for all 8 graphs")
+    require(plain_calls[0] == 0, "no plain SpMV on the fleet cg-banded path")
+    fleet_rate("GN cg-banded, corridor-1728 f32", one, graphs[0], run, fleet,
+               10, repeats=2)
+    return launches
+
+
+def marginal_errors(got, want, per_dof=True):
+    """The largest difference relative to each entry's own magnitude
+    (variances), or to each block's largest entry (pose blocks)."""
+    diff = (got.double() - want.double()).abs()
+    if per_dof:
+        return float((diff / want.double().abs()).max())
+    scale = want.double().abs().amax((-1, -2), keepdim=True)
+    return float((diff / scale).max())
+
+
+def marginals_phase(name, g32, device, blocks=True):
+    """Phase 4g: marginal_variances (and pose_covariances) of an f32 graph
+    through K4 + K1, against the plain f32 chain on the card and against
+    the f64 run of the same function on the card (the plain chain in
+    f64); the counts of the kernel run and its time."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.assemble import (
+        build_layout,
+        system_values,
+    )
+    from rustrobotics_tpu_torch.mapping.pgo import (
+        marginal_variances,
+        pose_covariances,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import (
+        build_band_chol,
+        marginal_covariances,
+        marginal_node_blocks,
+    )
+
+    reset_counts()
+    var_k = marginal_variances(g32, device=device)
+    blk_k = pose_covariances(g32, device=device) if blocks else None
+    torch.cuda.synchronize()
+    launches = read_counts()
+    bl = build_band_chol(build_layout(g32)).to(device)
+    vals, _, _ = system_values(g32, 0.0)
+    var_p = marginal_covariances(bl, vals)
+    g64 = g32.to(dtype=torch.float64)
+    var_64 = marginal_variances(g64, device=device)
+    err = dict(f64=marginal_errors(var_k, var_64),
+               plain=marginal_errors(var_k, var_p),
+               plain_f64=marginal_errors(var_p, var_64))
+    scale = float(var_64.abs().max())
+    norm = [float((a.double() - b.double()).abs().max()) / scale
+            for a, b in ((var_k, var_64), (var_k, var_p), (var_p, var_64))]
+    if blocks:
+        offs = g32.pose2_offsets.cpu().numpy()
+        blk_p = marginal_node_blocks(bl, vals, offs, [3] * len(offs),
+                                     pad_size=3)
+        blk_64 = pose_covariances(g64, device=device)
+        err.update(blocks_f64=marginal_errors(blk_k, blk_64, False),
+                   blocks_plain=marginal_errors(blk_k, blk_p, False),
+                   blocks_plain_f64=marginal_errors(blk_p, blk_64, False))
+    ms = cuda_ms(lambda: marginal_variances(g32, device=device), repeats=3,
+                 warmup=1)
+    ms_plain = cuda_ms(lambda: marginal_covariances(bl, vals), repeats=3,
+                       warmup=1)
+    print(f"[marginals] {name} (kb={bl.kb}, nb={bl.nb}): variances through "
+          f"K4 + K1 against f64 {err['f64']:.6g}, against the plain f32 "
+          f"chain {err['plain']:.6g} (plain f32 against f64 "
+          f"{err['plain_f64']:.6g}); per-dof relative; relative to the "
+          f"largest variance {norm[0]:.6g}, {norm[1]:.6g} ({norm[2]:.6g}); "
+          f"variance range {float(var_64.min()):.4g}..{scale:.4g}",
+          flush=True)
+    if blocks:
+        print(f"[marginals] {name} pose blocks (per block's largest entry): "
+              f"against f64 {err['blocks_f64']:.6g}, against plain f32 "
+              f"{err['blocks_plain']:.6g} (plain against f64 "
+              f"{err['blocks_plain_f64']:.6g})", flush=True)
+    print(f"[marginals] {name}: launches {launches}; marginal_variances "
+          f"{ms:.4f} ms (whole call: system values, K4, K1, recursion; "
+          f"median of 3), the plain f32 chain's selected inverse alone "
+          f"{ms_plain:.4f} ms", flush=True)
+    require(bool(torch.isfinite(var_k).all() and (var_k > 0).all()),
+            f"{name} marginal variances finite and positive")
+    tol = MARGINAL_TOL.get(name)
+    if tol is None:
+        for key, what in (("", "variances"), ("blocks_", "pose blocks")
+                          )[:2 if blocks else 1]:
+            limit = MARGINAL_RULE * err[f"{key}plain_f64"]
+            require(err[f"{key}f64"] <= limit and err[f"{key}plain"] <= limit,
+                    f"{name} {what} through K4 + K1 within {MARGINAL_RULE}x "
+                    f"the plain f32 chain's distance from f64 ({limit:.4g}) "
+                    f"of f64 and of the plain chain")
+    else:
+        require(err["f64"] <= tol["f64"],
+                f"{name} variances through K4 + K1 within {tol['f64']} of "
+                f"f64")
+        require(err["plain"] <= tol["plain"],
+                f"{name} variances through K4 + K1 within {tol['plain']} of "
+                f"the plain f32 chain")
+    want = 2 if blocks else 1
+    for key in ("assemble_b1", "factorize"):
+        require(launches[key] == want,
+                f"{key} launched {want}x by the marginals ({launches[key]})")
+    return dict(launches=launches, ms=ms, **err)
+
+
+@contextlib.contextmanager
+def counted_host_solve():
+    """Within the block, every SuperLU host solve adds one to the count it
+    yields (solve_native falls back to it when the library is missing)."""
+    from rustrobotics_tpu_torch.mapping import solvers
+
+    calls = [0]
+    saved = solvers.solve_host
+
+    def counted(*args):
+        calls[0] += 1
+        return saved(*args)
+
+    solvers.solve_host = counted
+    try:
+        yield calls
+    finally:
+        solvers.solve_host = saved
+
+
+def backends_phase(device):
+    """Phase 4h: the remaining solver backends on corridor-1728, GN 10,
+    each held to the χ² anchors of the banded-kernel path: banded-cr,
+    banded-mixed (lp "high": the lifted factor at full f32; "bf16": the
+    band truncated to bfloat16) with their CG rounds, schur (f32 on
+    the card) and native (the C++ LDL^T on the host, the graph in f64),
+    which must run the native library and never SuperLU."""
+    import functools
+
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import solvers
+    from rustrobotics_tpu_torch.mapping.pgo import make_optimize, optimize
+    from rustrobotics_tpu_torch.ops.native_solver import native_available
+
+    g64 = corridor(1728, device)
+    g32 = g64.to(dtype=torch.float32)
+    mixed = solvers.make_banded_mixed
+    out = {}
+    for label in BACKEND_RUNS:
+        backend, _, lp = label.partition(" ")
+        rounds, host_calls = [], [0]
+        t0 = time.perf_counter()
+        if backend == "native":
+            require(native_available(), "the native LDL^T library built")
+            with counted_host_solve() as host_calls:
+                res = optimize(g64, num_iterations=10, backend="native",
+                               tolerance=0.0, device=device)
+            err = torch.tensor(res.errors, dtype=torch.float64)
+        else:
+            if lp:
+                solvers.make_banded_mixed = functools.partial(mixed, lp=lp)
+            try:
+                with recorded_rounds() as rounds:
+                    _, err, _ = make_optimize(g32, num_iterations=10,
+                                              backend=backend, tolerance=0.0,
+                                              device=device)(g32)
+                    torch.cuda.synchronize()
+            finally:
+                solvers.make_banded_mixed = mixed
+            err = err.double().cpu()
+        wall = time.perf_counter() - t0
+        out[label] = err
+        extra = f"; CG rounds per solve {rounds}" if rounds else ""
+        if backend == "native":
+            extra = f"; SuperLU solves {host_calls[0]}"
+        print(f"[backends] GN {label:17} {err.tolist()} ({wall * 1e3:.4f} ms "
+              f"with set-up, host clock){extra}", flush=True)
+        require(bool(torch.isfinite(err).all()) and len(err) == 11,
+                f"{label}: 10 iterations, χ² finite")
+        require(abs(err[0] / GN_CHI2[0] - 1) <= 1e-4
+                and abs(err[1] / GN_CHI2[1] - 1) <= 1e-2 and err[10] < 1e-2,
+                f"{label}: errors[0] {err[0]:.6f} within 1e-4 of {GN_CHI2[0]},"
+                f" errors[1] {err[1]:.6f} within 1% of {GN_CHI2[1]}, "
+                f"errors[10] {err[10]:.3g} < 1e-2")
+        if backend == "native":
+            require(host_calls[0] == 0, "native ran the native library (no "
+                                        "SuperLU solve)")
+    return out
+
+
+def auto_measure_phase(name, g32, device):
+    """Phase 4i: make_optimize(backend="auto-measure"): each candidate's
+    best of three solve times on the template's system and the winner,
+    whose one GN step must be finite."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import make_optimize
+
+    run = make_optimize(g32, num_iterations=1, backend="auto-measure",
+                        tolerance=0.0, device=device)
+    times = ", ".join(f"{k} {v * 1e3:.4f} ms"
+                      for k, v in sorted(run.backend_times.items(),
+                                         key=lambda kv: kv[1]))
+    _, err, _ = run(g32)
+    print(f"[auto-measure] {name}: {times}; winner {run.backend}; GN 1 "
+          f"errors {err.tolist()}", flush=True)
+    require(set(run.backend_times) == {"banded-direct", "banded-cr",
+                                        "banded-mixed", "banded-kernel"},
+            f"{name} auto-measure timed the four banded candidates")
+    require(run.backend in run.backend_times
+            and bool(torch.isfinite(err).all()),
+            f"{name} auto-measure ran its winner, {run.backend}")
+    return run.backend, run.backend_times
 
 
 K12_GROUPS = {"K4 band_assemble": "band_assemble",
@@ -1653,11 +2046,11 @@ def main() -> int:
 
     from rustrobotics_tpu_torch.ops import cuda_lib
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         built = dict(zip(SOURCES, pool.map(cuda_lib.build, SOURCES)))
     print(f"[build] {', '.join(f'{n}.cu' for n in built)} built in "
-          f"{time.perf_counter() - t0:.2f} s (in parallel)", flush=True)
+          f"{time.perf_counter() - t_start:.2f} s (in parallel)", flush=True)
 
     parity_random(11, 512, device)
     p1728 = parity("corridor-1728", corridor(1728, device))
@@ -1674,6 +2067,7 @@ def main() -> int:
                         SPHERE_PARITY_TOL)
     k3 = k3_parity(corridor(1728, device).to(dtype=torch.float32), device)
     graphs64 = fleet_graphs(device)
+    k3b = k3_fleet_parity(graphs64)
     fp = fleet_parity(p1728["bl"], graphs64)
     gn, g32, launches = main_path(device)
     cg_gn, cg_launches = cg_main_path(device, g32)
@@ -1681,8 +2075,15 @@ def main() -> int:
     (gn3, g3, lm3_fleet, fleet3, launches3,
      fleet_launches3) = sphere_path(device, spheres64)
     gnc_lm, gnc_g, gnc_launches = gnc_path(device)
+    fleet_cg_launches = fleet_cg_path(device, graphs64)
+    marg = marginals_phase("corridor-1728", g32, device)
+    marg3 = marginals_phase("sphere-2500", g3, device, blocks=False)
+    backends_phase(device)
+    for name, graph in (("corridor-1728", g32), ("sphere-2500", g3)):
+        auto_measure_phase(name, graph, device)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
+    timed["banded_matvec"].update(k3_fleet_times(k3b))
     timed["assemble_b1"] = assemble_times(p1728["bl"], p1728["vals"].float())
     timed["assemble_batch"] = assemble_times(p1728["bl"], fp["vals"])
     fleet_times(fp, p1728["bl"], fleet_gn, fleet, gn, g32)
@@ -1716,6 +2117,9 @@ def main() -> int:
           f"iterations", lambda: lm3_fleet(fleet3), FLEET_GROUPS)
     trace(f"LM gnc-gm banded-kernel corridor-1728-gnc, {GNC_ITERS} "
           f"iterations", lambda: gnc_lm(gnc_g), K12_GROUPS)
+    print(f"[total] {time.perf_counter() - t_start:.2f} s from the build's "
+          f"start",
+          flush=True)
 
     src = "rustrobotics_tpu_torch/csrc/band_chol.cu"
     asm = "rustrobotics_tpu_torch/csrc/band_assemble.cu"
@@ -1742,10 +2146,14 @@ def main() -> int:
              replaces="rustrobotics_tpu/ops/banded.py:110",
              launches=cg_launches["banded_matvec"],
              max_abs_err=k3["err"]["max_abs_err"],
+             fleet_launches=fleet_cg_launches["banded_matvec"],
              err_measure="max|y_kernel - y_plain|, corridor-1728's band "
-                         "at λ=0 times its right-hand side",
+                         "at λ=0 times its right-hand side; *_b8: the fleet "
+                         "of 8's bands at the first LM step's damping",
              ms_measure="ms, plain_ms and library_ms with L2 flushed "
-                        "before each call; l2_warm_ms 50 calls back to back",
+                        "before each call; l2_warm_ms 50 calls back to "
+                        "back; *_b8 one launch for the fleet of 8, L2 "
+                        "flushed",
              **timed["banded_matvec"]),
         dict(name="band_assemble_f32 (K4, B=1)", route="cuda", source=asm,
              replaces="tools/tpu_pallas_scatter_probe.py:44",
@@ -1782,9 +2190,14 @@ def main() -> int:
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]
+    # the marginals (corridor-1728 and sphere-2500) factor through K4 + K1
+    kernels[0]["marginal_launches"] = (marg["launches"]["factorize"]
+                                       + marg3["launches"]["factorize"])
+    kernels[3]["marginal_launches"] = (marg["launches"]["assemble_b1"]
+                                       + marg3["launches"]["assemble_b1"])
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "max_abs_err"):
-            for name in (key, f"{key}_3d"):
+            for name in (key, f"{key}_3d", f"{key}_b8"):
                 if name in k and not math.isfinite(k[name]):
                     fail(f"{k['name']} {name} is not finite")
     print(json.dumps({"kernels": kernels}), flush=True)

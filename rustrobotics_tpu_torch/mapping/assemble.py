@@ -17,8 +17,6 @@ to every diagonal.
   ``robust_rho`` is the matching loss of the LM accept test;
 - a fleet of same-structure graphs (``pgo.stack_graphs``) runs the same
   code with a leading batch axis on every value (and on the GNC μ).
-
-Not ported yet: the layout's Schur maps (they serve the Schur backend).
 """
 
 from __future__ import annotations
@@ -55,12 +53,14 @@ class SystemLayout:
     numpy on the host; ``to(device)`` gives a copy whose index arrays are
     int64 tensors on that device.
 
-    Besides the triplets it carries the two static structures of the CG
-    backends:
+    Besides the triplets it carries the static structures of the CG and
+    Schur backends:
     - ELL: the duplicate-summed CSR pattern padded to ``ell_width`` slots
       a row, so the SpMV is a gather and a row sum;
     - block maps: dof -> (node block, position in the block) with
-      identity padding to 6x6, for the block-Jacobi preconditioner.
+      identity padding to 6x6, for the block-Jacobi preconditioner;
+    - Schur maps: which dofs are 2D landmarks', the pose and landmark
+      dofs, and each dof's index within its own group.
     """
 
     rows: np.ndarray  # (nnz,)
@@ -80,6 +80,11 @@ class SystemLayout:
     dof_pos: np.ndarray  # (n,) position of each dof in its node's block
     pad_eye: np.ndarray  # (n_blocks, 6, 6) ones past each block's size
     n_blocks: int
+    # Schur split: pose dofs vs 2D-landmark dofs (host arrays only)
+    dof_is_lm: np.ndarray  # (n,) bool
+    pose_dofs: np.ndarray  # (n_pose_dof,) reference-layout indices
+    lm_dofs: np.ndarray  # (n_lm_dof,) reference-layout indices
+    dof_compact: np.ndarray  # (n,) index within its own group
 
     _INDEX_FIELDS = ("rows", "cols", "ell_order", "ell_seg", "ell_pos",
                      "ell_nbr", "dof_block", "dof_pos")
@@ -178,6 +183,16 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
         idx = np.arange(size, 6)
         pad_eye[k, idx, idx] = 1.0
 
+    # Schur split maps
+    dof_is_lm = np.zeros(n, bool)
+    for o in l2:
+        dof_is_lm[o:o + 2] = True
+    pose_dofs = np.where(~dof_is_lm)[0].astype(np.int32)
+    lm_dofs = np.where(dof_is_lm)[0].astype(np.int32)
+    dof_compact = np.zeros(n, np.int32)
+    dof_compact[pose_dofs] = np.arange(len(pose_dofs))
+    dof_compact[lm_dofs] = np.arange(len(lm_dofs))
+
     return SystemLayout(
         rows=rows_all,
         cols=cols_all,
@@ -194,6 +209,10 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
         dof_pos=dof_pos,
         pad_eye=pad_eye,
         n_blocks=n_blocks,
+        dof_is_lm=dof_is_lm,
+        pose_dofs=pose_dofs,
+        lm_dofs=lm_dofs,
+        dof_compact=dof_compact,
     )
 
 

@@ -18,10 +18,20 @@ Three drivers:
 
 Backends: ``banded-kernel`` (the CUDA kernels; ``auto`` on the card),
 ``banded-direct`` (the same chain in plain PyTorch; ``auto`` on the CPU),
-``dense``, ``host`` and ``cg`` (block-Jacobi PCG on the ELL operator).
-``make_optimize`` also takes ``cg-banded`` (the PCG on the block-banded
-operator, its SpMV the CUDA kernel K3 on the card and plain on the CPU)
-and ``cg-banded-jnp`` (the plain SpMV everywhere; the JAX package's name).
+``banded-cr`` (cyclic reduction), ``banded-mixed`` (CG preconditioned by a
+low-precision cyclic-reduction factor), ``dense``, ``schur`` (landmarks
+eliminated), ``cg`` (block-Jacobi PCG on the ELL operator), ``cg-banded``
+(the PCG on the block-banded operator, its SpMV the CUDA kernel K3 on the
+card and plain on the CPU), ``cg-banded-jnp`` (the plain SpMV everywhere;
+the JAX package's name), the host solvers ``host`` (SuperLU) and
+``native`` (the C++ LDL^T), and ``auto-measure``, which times one solve of
+the template's system by every banded candidate and keeps the fastest
+(``_measure_backend``). ``optimize`` takes every name but the banded PCG's;
+``make_optimize`` and ``make_optimize_batch`` take every device backend
+(not ``host`` or ``native``), as the JAX package's drivers do. The drivers
+expose the backend they run: ``OptimizeResult.backend`` and the
+``backend`` attribute of a returned ``run`` (with ``backend_times``, each
+measured candidate's seconds, after ``auto-measure``).
 
 Every driver takes SE2 and SE3 graphs and the robust kernels of
 ``assemble.robust_weight``: a robust LM run accepts a step on the robust
@@ -29,14 +39,17 @@ surrogate (``robust_global_cost``) at the current GNC μ, and ``gnc-gm``
 anneals μ from μ0 (``max_edge_chi2``, capped at ``GNC_MU0_CAP``) to 1 at
 60% of the iteration budget; the loop does not stop while μ > 1.
 
-Not ported yet: ``auto-measure``, the batched PCG backends of the fleet,
-marginals and covariances, and the ``PoseGraph`` wrapper.
+Uncertainty: ``marginal_variances`` and ``pose_covariances`` (the banded
+selected inverse; K4 + K1 for f32 values on the card).
+
+Not ported yet: the ``PoseGraph`` wrapper.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -48,6 +61,7 @@ from rustrobotics_tpu_torch.mapping.assemble import (
     PRIOR_WEIGHT,
     apply_update,
     build_layout,
+    dense_hessian,
     odometry,
     robust_rho,
     system_values,
@@ -64,8 +78,11 @@ from rustrobotics_tpu_torch.mapping.linearize import (
     residual_qq,
 )
 
-BACKENDS = ("auto", "banded-kernel", "banded-direct", "dense", "host", "cg",
-            "cg-banded", "cg-banded-jnp")
+BACKENDS = ("auto", "auto-measure", "banded-kernel", "banded-direct",
+            "banded-cr", "banded-mixed", "dense", "schur", "host", "native",
+            "cg", "cg-banded", "cg-banded-jnp")
+# the host solvers: optimize's alone, as in the JAX package
+HOST_BACKENDS = ("host", "native")
 
 
 def _edge_chi2(graph: PoseGraphData):
@@ -145,21 +162,86 @@ class OptimizeResult:
     errors: list  # χ² before each recorded step (reference-trace layout)
     norms: list  # ‖dx‖ per iteration
     iterations: int
+    backend: str | None = None  # the backend that ran (auto-measure's pick)
+
+
+def _synchronize(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _measure_backend(graph_template: PoseGraphData, layout, device):
+    """Pick the fastest banded backend on this device by timing solves of
+    the template's undamped normal equations: ``banded-direct``,
+    ``banded-cr`` and ``banded-mixed``, and ``banded-kernel`` on the card
+    (where the JAX package adds ``banded-pallas`` on a TPU). Each
+    candidate solves once, then three times timed (host clock between
+    ``torch.cuda.synchronize`` calls), and keeps its best. A candidate
+    that returns None (bandwidth too large) or a non-finite x is
+    disqualified. Returns (name, {candidate: seconds}); "dense" when no
+    candidate qualified.
+
+    One deviation from the JAX package: a candidate that raises is not
+    skipped. Skipping it would hide a kernel that failed to build or
+    launch, so the exception propagates."""
+    g = graph_template.to(device=device)
+    vals, b, _ = system_values(g, 0.0)
+    candidates = {"banded-direct": solvers.make_banded_direct,
+                  "banded-cr": solvers.make_banded_cr,
+                  "banded-mixed": solvers.make_banded_mixed}
+    if device.type == "cuda":
+        candidates["banded-kernel"] = solvers.make_banded_kernel
+    times = {}
+    for name, make in candidates.items():
+        solve = make(layout, device=device)
+        if solve is None:
+            continue
+        if not bool(torch.isfinite(solve(vals, b)).all()):
+            continue
+        best = math.inf
+        for _ in range(3):
+            _synchronize(device)
+            t0 = time.perf_counter()
+            solve(vals, b)
+            _synchronize(device)
+            best = min(best, time.perf_counter() - t0)
+        times[name] = best
+    if not times:
+        return "dense", times
+    return min(times, key=times.get), times
+
+
+def _resolve_backend(graph, layout, backend: str, device: torch.device):
+    """(backend, measured times) for a backend name: ``auto`` is
+    ``banded-kernel`` on the card and ``banded-direct`` on the CPU;
+    ``auto-measure`` times the banded candidates on ``graph``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{BACKENDS}")
+    if backend == "auto":
+        return ("banded-kernel" if device.type == "cuda"
+                else "banded-direct"), {}
+    if backend == "auto-measure":
+        return _measure_backend(graph, layout, device)
+    return backend, {}
 
 
 def _make_solve(layout, backend: str, device: torch.device, cg_tol=1e-10,
                 cg_maxiter=None):
-    """solve(vals, b) -> dx for a backend name. ``cg`` always runs up to
-    4·n rounds (the JAX package's ``make_optimize_jit`` does not pass
-    ``cg_maxiter`` to it); the banded PCG takes ``cg_maxiter``, and None
-    means ``jax.scipy.sparse.linalg.cg``'s 10·n."""
-    if backend == "auto":
-        backend = "banded-kernel" if device.type == "cuda" else "banded-direct"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of "
-                         f"{BACKENDS}")
-    if backend == "host":
-        return lambda vals, b: solvers.solve_host(layout, vals, b)
+    """solve(vals, b) -> dx for a resolved backend name (not ``auto`` or
+    ``auto-measure``). ``cg`` always runs up to 4·n rounds (the JAX
+    package's ``make_optimize_jit`` does not pass ``cg_maxiter`` to it);
+    the banded PCG takes ``cg_maxiter``, and None means
+    ``jax.scipy.sparse.linalg.cg``'s 10·n. The banded backends fall back
+    to ``dense`` when the RCM bandwidth is too large, as in the JAX
+    package."""
+    host_solvers = {"host": solvers.solve_host,
+                    "native": solvers.solve_native,
+                    "schur": solvers.solve_schur}
+    if backend in host_solvers:
+        # these plan on the host layout (schur splits the triplets there)
+        solve = host_solvers[backend]
+        return lambda vals, b: solve(layout, vals, b)
     dev_layout = layout.to(device)
 
     def dense(vals, b):
@@ -180,9 +262,11 @@ def _make_solve(layout, backend: str, device: torch.device, cg_tol=1e-10,
             dev_layout, blayout, vals, b, tol=cg_tol, maxiter=maxiter,
             use_kernel=use_kernel)
     make = {"banded-kernel": solvers.make_banded_kernel,
-            "banded-direct": solvers.make_banded_direct}[backend]
+            "banded-direct": solvers.make_banded_direct,
+            "banded-cr": solvers.make_banded_cr,
+            "banded-mixed": solvers.make_banded_mixed}[backend]
     # bandwidth too large for the banded layout: dense is the right call
-    return make(layout, device) or dense
+    return make(layout, device=device) or dense
 
 
 def optimize(
@@ -202,7 +286,8 @@ def optimize(
     """Host-driven optimization loop (reference semantics).
     ``robust``/``robust_delta``/``robust_alpha``: optional IRLS
     reweighting of outlier edges (``assemble.robust_weight``); "gnc-gm"
-    anneals μ from μ0 to 1 across the iterations."""
+    anneals μ from μ0 to 1 across the iterations. Every backend but the
+    banded PCG's; the result's ``backend`` is the one that ran."""
     if backend in ("cg-banded", "cg-banded-jnp"):
         # as in the JAX package, the banded PCG is make_optimize's alone
         raise ValueError(f"backend {backend!r} runs in make_optimize only")
@@ -210,6 +295,7 @@ def optimize(
     graph = graph.to(device=device)
     layout = build_layout(graph)
     dtype = graph.dtype
+    backend, _ = _resolve_backend(graph, layout, backend, device)
     solve_fn = _make_solve(layout, backend, device)
     gnc = robust == "gnc-gm"
     mu = mu0 = 1.0
@@ -276,7 +362,7 @@ def optimize(
             break
 
     return OptimizeResult(graph=graph, errors=errors, norms=norms,
-                          iterations=it)
+                          iterations=it, backend=backend)
 
 
 _NODE_FIELDS = ("poses2", "landmarks2", "poses3")
@@ -318,8 +404,11 @@ def make_optimize(
     up to 4·n rounds whatever ``cg_maxiter`` says, as the JAX package's
     ``make_optimize_jit`` does. f32 does not reach the default 1e-10, so
     an f32 run passes its own, e.g. ``cg_tol=1e-6, cg_maxiter=400``. On
-    the card ``cg-banded`` needs an f32 graph: K3 is f32 only. ``host`` is
-    not a device backend and raises ValueError, as in the JAX package.
+    the card ``cg-banded`` needs an f32 graph: K3 is f32 only. ``host``
+    and ``native`` are not device backends and raise ValueError, as in the
+    JAX package. ``auto-measure`` times the banded candidates on the
+    template's system once, here; ``run.backend`` names the backend that
+    runs and ``run.backend_times`` holds the measured seconds.
 
     Robust runs (``robust``, ``robust_delta``, ``robust_alpha``) mirror
     ``make_optimize_jit``: LM accepts a step on the robust surrogate at
@@ -330,10 +419,11 @@ def make_optimize(
     iteration is the convergence test ``‖dx‖ < tolerance``, skipped when
     tolerance <= 0 (nothing can pass it); capturing the step in a CUDA
     graph is later work."""
-    if backend == "host":
+    if backend in HOST_BACKENDS:
         raise ValueError(f"jit path needs a device backend, got {backend!r}")
     device = resolve_device(device)
     layout = build_layout(graph_template)
+    backend, times = _resolve_backend(graph_template, layout, backend, device)
     solve = _make_solve(layout, backend, device, cg_tol=cg_tol,
                         cg_maxiter=cg_maxiter)
     lm = solver in ("lm", "levenberg_marquardt")
@@ -405,6 +495,7 @@ def make_optimize(
             errors[it] = global_error(g)
         return g, errors, it
 
+    run.backend, run.backend_times = backend, times
     return run
 
 
@@ -451,13 +542,14 @@ def make_optimize_batch(
     one loop, each kernel launch covering every graph. Returns
     run(batched_graph) -> (graphs, errors (B, iters+1), iters (B,)).
 
-    Backends ``dense``, ``banded-direct``, ``banded-kernel`` and ``auto``,
-    with ``make_optimize``'s arguments; the template may be one graph or a
-    fleet. ``host`` raises ValueError, as the JAX device loop does; the
-    PCG backends (``cg``, ``cg-banded``, ``cg-banded-jnp``) raise
-    NotImplementedError: a batched PCG with per-row round counts is later
-    work (ROADMAP), and ``cg_tol``/``cg_maxiter`` are accepted for the
-    same signature.
+    Every device backend of ``make_optimize``, with its arguments; the
+    template may be one graph or a fleet. ``host`` and ``native`` raise
+    ValueError, as the JAX device loop does. The PCG backends (``cg``,
+    ``cg-banded``, ``cg-banded-jnp``) run ``solvers.pcg`` over the fleet:
+    each row has its own stop test and round count, and a fleet's SpMV is
+    one K3 launch a round on the card. ``auto-measure`` times the banded
+    candidates on the template's system (``run.backend``,
+    ``run.backend_times``).
 
     The loop has the semantics of JAX's batched ``while_loop``: it runs
     while any row's condition (it < num_iterations and not ‖dx‖ <
@@ -469,15 +561,14 @@ def make_optimize_batch(
     iteration count equal ``make_optimize`` on graph i. The one host read
     per iteration is the any-row-active test, skipped when tolerance <=
     0."""
-    if backend == "host":
+    if backend in HOST_BACKENDS:
         raise ValueError(f"the batched loop needs a device backend, got "
                          f"{backend!r}")
-    if backend in ("cg", "cg-banded", "cg-banded-jnp"):
-        raise NotImplementedError(
-            f"backend {backend!r} has no batched form yet (a batched PCG "
-            f"with per-row round counts; ROADMAP Queue 1)")
     device = resolve_device(device)
-    solve = _make_solve(build_layout(graph_template), backend, device)
+    layout = build_layout(graph_template)
+    backend, times = _resolve_backend(graph_template, layout, backend, device)
+    solve = _make_solve(layout, backend, device, cg_tol=cg_tol,
+                        cg_maxiter=cg_maxiter)
     lm = solver in ("lm", "levenberg_marquardt")
     gnc = robust == "gnc-gm"
     n_it = num_iterations
@@ -561,4 +652,78 @@ def make_optimize_batch(
             errors = put(errors, it, global_error(g))
         return g, errors, it
 
+    run.backend, run.backend_times = backend, times
     return run
+
+
+def linearize_and_solve(graph: PoseGraphData, backend: str = "host",
+                        device=None):
+    """One Gauss-Newton step's dx with λ = 0, by a solver of
+    ``solvers.SOLVERS`` (the oracle of the reference's single step)."""
+    graph = graph.to(device=resolve_device(device))
+    layout = build_layout(graph)
+    vals, b, _ = system_values(graph, 0.0)
+    return solvers.SOLVERS[backend](layout, vals, b)
+
+
+def _marginal_system(graph, robust, robust_delta, device):
+    """The undamped system's values and its band plan (None when the RCM
+    bandwidth is too large), and the chain that factors it: K4 + K1 for
+    f32 values (on the CPU their plain versions), the plain chain for
+    f64."""
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import build_band_chol
+    from rustrobotics_tpu_torch.ops.band_chol_kernels import factorize_kernel
+
+    graph = graph.to(device=resolve_device(device))
+    layout = build_layout(graph)
+    vals, _, _ = system_values(graph, 0.0, robust=robust,
+                               robust_delta=robust_delta)
+    bl = build_band_chol(layout)
+    chain = (dict(factorize=factorize_kernel, assemble=band_assemble_kernel)
+             if vals.dtype == torch.float32 else {})
+    return graph, layout, vals, (None if bl is None
+                                 else bl.to(graph.device)), chain
+
+
+def marginal_variances(graph: PoseGraphData, robust: str | None = None,
+                       robust_delta: float = 1.0, device=None):
+    """Per-dof marginal variances diag(H^-1) (..., n) at the current
+    estimates, by selected inversion of the banded factorization
+    (``band_chol.marginal_covariances``, O(n kb^2)); a dense inverse when
+    the RCM bandwidth is too large for the banded path. Pass the robust
+    kernel the graph was optimized with, so that outlier edges keep their
+    IRLS down-weighting in the reported uncertainty. f32 values on the
+    card assemble with K4 and factor with K1; f64 values take the plain
+    chain."""
+    from rustrobotics_tpu_torch.ops.band_chol import marginal_covariances
+
+    _, layout, vals, bl, chain = _marginal_system(graph, robust,
+                                                  robust_delta, device)
+    if bl is not None:
+        return marginal_covariances(bl, vals, **chain)
+    h = dense_hessian(layout, vals)
+    return torch.diagonal(torch.linalg.inv(h), dim1=-2, dim2=-1)
+
+
+def pose_covariances(graph: PoseGraphData, robust: str | None = None,
+                     robust_delta: float = 1.0, device=None):
+    """(..., N2, 3, 3) marginal covariance blocks of the SE2 poses at the
+    current estimates (uncertainty ellipses), from the banded selected
+    inverse (``band_chol.marginal_node_blocks``); when the RCM bandwidth
+    is too large, the same blocks of a dense inverse. The chain as in
+    ``marginal_variances``."""
+    from rustrobotics_tpu_torch.ops.band_chol import marginal_node_blocks
+
+    graph, layout, vals, bl, chain = _marginal_system(graph, robust,
+                                                      robust_delta, device)
+    offs = graph.pose2_offsets.cpu().numpy()
+    if bl is not None:
+        return marginal_node_blocks(bl, vals, offs, np.full(len(offs), 3),
+                                    pad_size=3, **chain)
+    hinv = torch.linalg.inv(dense_hessian(layout, vals))
+    idx = torch.as_tensor(offs[:, None] + np.arange(3)[None, :],
+                          device=vals.device)                  # (N2, 3)
+    return hinv[..., idx[:, :, None], idx[:, None, :]]

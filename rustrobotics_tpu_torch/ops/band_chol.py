@@ -25,13 +25,25 @@ job list of the CUDA band assembly K4/K5
 (``band_assemble_kernels.band_assemble_kernel``), which takes the place
 of the plain scatter on the ``banded-kernel`` path.
 
+Two more factorizations of the same scaled band:
+
+- block cyclic reduction (``cr_factorize``, ``cr_substitute``,
+  ``cr_invert``, ``cr_substitute_inv``, ``solve_band_cr``): the
+  block-tridiagonal system is reduced by eliminating its odd blocks, a
+  batched level at a time, at the chain's native length (a level of m
+  blocks keeps its ceil(m/2) even ones);
+- the selected inverse (``marginal_covariances``,
+  ``marginal_node_blocks``): the backward recursion
+  C_jj = G_j + Ld_j^-T S_j^T C_{j+1,j+1} S_j Ld_j^-1 through the chain's
+  inverse factors, the diagonal blocks of H^-1 without forming it. Its
+  factorization is an argument: the plain chain, or K4 + K1 on the card.
+
 Every function takes a fleet's leading batch axis: vals (B, nnz) and b
 (B, n) give block rows (B, nb, kb, 2kb) and x (B, n); the plan is the
 graphs' shared one.
 
-Not ported yet: block cyclic reduction, selected inversion and marginals,
-the triangular-solve ("trsm") substitution mode, and the "strips" scatter
-mode with its plan.
+Not ported yet: the triangular-solve ("trsm") substitution mode of the
+chain, and the "strips" scatter mode with its plan.
 """
 
 from __future__ import annotations
@@ -45,7 +57,12 @@ from rustrobotics_tpu_torch.ops.band_chol_kernels import (
     factorize_plain,
     substitute_plain,
 )
-from rustrobotics_tpu_torch.ops.batched_tri import _sym
+from rustrobotics_tpu_torch.ops.batched_tri import (
+    _cholesky,
+    _sym,
+    chol_blocked,
+    tril_inv,
+)
 
 # Band floats a tile of the assembly's plan: one CTA of K4/K5 owns a tile
 # (32 KB, eight rows at kb = 512). It divides every band, nb kb 2kb with
@@ -216,23 +233,32 @@ def split_blocks(r_blocks):
     return _sym(r_blocks[..., kb:]), r_blocks[..., :kb].contiguous()
 
 
+def scale_rhs(bl: BandCholLayout, b, dinv_p):
+    """b (..., n) permuted, zero-padded and Jacobi-scaled into band space:
+    (..., nb, kb)."""
+    bp = b[..., _index(bl.perm, b.device)]
+    bp = torch.cat([bp, bp.new_zeros(bp.shape[:-1] + (bl.nb * bl.kb - bl.n,))],
+                   -1)
+    return (bp * dinv_p).view(bp.shape[:-1] + (bl.nb, bl.kb))
+
+
+def unscale(bl: BandCholLayout, xs, dinv_p):
+    """The inverse of ``scale_rhs`` for a solution: band-space xs (..., nb,
+    kb) -> x (..., n) in the original dof order."""
+    y = xs.reshape(dinv_p.shape) * dinv_p
+    return y[..., _index(bl.inv_perm, y.device)]
+
+
 def solve_banded(bl: BandCholLayout, vals, b, factorize, substitute,
                  assemble=None):
     """The banded solve around an assembly, a factorization and a
     substitution: RCM permutation, Jacobi scaling and padding in,
     unscaling and the inverse permutation out. Runs in vals' dtype; vals
     (..., nnz) and b (..., n) share their batch shape."""
-    n, kb, nb = bl.n, bl.kb, bl.nb
-    npad = nb * kb
-    batch = vals.shape[:-1]
     r_blocks, dinv_p = _prepare_blocks(bl, vals, assemble)
-    bp = b[..., _index(bl.perm, b.device)]
-    bp = torch.cat([bp, bp.new_zeros(batch + (npad - n,))], -1)
-    bp = (bp * dinv_p).view(batch + (nb, kb))
     ldinv, lp = factorize(*split_blocks(r_blocks))
-    xs = substitute(ldinv, lp, bp)
-    y = xs.reshape(batch + (npad,)) * dinv_p
-    return y[..., _index(bl.inv_perm, y.device)]
+    xs = substitute(ldinv, lp, scale_rhs(bl, b, dinv_p))
+    return unscale(bl, xs, dinv_p)
 
 
 def solve_band_chol(bl: BandCholLayout, vals, b):
@@ -240,3 +266,259 @@ def solve_band_chol(bl: BandCholLayout, vals, b):
     aligned with the SystemLayout that built ``bl``) through the plain
     chain, in vals' dtype."""
     return solve_banded(bl, vals, b, factorize_plain, substitute_plain)
+
+
+# ------------------------------------------------------------------
+# Block cyclic reduction. In kb-block form the scaled band is block
+# tridiagonal: D_j = r_blocks[j, :, kb:] (lower triangle), L_j =
+# r_blocks[j, :, :kb] coupling block j to j-1 (L_0 = 0). A level
+# eliminates the odd blocks 2t+1 (F_t = chol(D_{2t+1})):
+#
+#   A_t = F_t^-1 L_{2t+1}          B_t = F_t^-1 L_{2t+2}^T
+#   D'_t = D_2t - A_t^T A_t - B_{t-1}^T B_{t-1}
+#   L'_t = -B_{t-1}^T A_{t-1}
+#
+# and leaves the Schur complement on the even blocks, SPD block
+# tridiagonal again. Each level keeps (F, A, B), so a right-hand side is
+# reduced down the levels, solved at the root and substituted back up.
+# ------------------------------------------------------------------
+
+
+def _btsolve(f, rhs):
+    """F^-1 rhs for lower-triangular F over leading axes."""
+    return torch.linalg.solve_triangular(f, rhs, upper=False)
+
+
+def _btsolve_t(f, rhs):
+    """F^-T rhs for lower-triangular F over leading axes."""
+    return torch.linalg.solve_triangular(f.mT, rhs, upper=True)
+
+
+def _mv(m, v):
+    """(..., k, k) @ (..., k) -> (..., k)."""
+    return (m @ v[..., None])[..., 0]
+
+
+def _zero_row(v):
+    """One zero block vector (..., 1, kb) for block vectors v (..., m,
+    kb)."""
+    return v.new_zeros(v.shape[:-2] + (1, v.shape[-1]))
+
+
+def cr_factorize(r_blocks):
+    """Cyclic-reduction factorization of the block-tridiagonal band
+    (..., nb, kb, 2kb). Returns (levels, f_root): per level (F, A, B), each
+    (..., h, kb, kb) with h the level's eliminated odd blocks, and the
+    (..., kb, kb) Cholesky factor of the reduced root block."""
+    nb, kb = r_blocks.shape[-3], r_blocks.shape[-2]
+    # the band holds lower triangles: mirror once; every later diagonal is
+    # a Schur complement and symmetric
+    d = _sym(r_blocks[..., kb:])
+    lo = r_blocks[..., :kb]
+    zero = d.new_zeros(d.shape[:-3] + (1, kb, kb))
+    m = nb
+    levels = []
+    while m > 1:
+        h = m // 2              # eliminated odd blocks 2t+1, t in [0, h)
+        he = m - h              # surviving even blocks 2s, s in [0, he)
+        l_odd = lo[..., 1::2, :, :]
+        l_next = lo[..., 2::2, :, :]        # L_{2t+2}; zero past the end
+        if l_next.shape[-3] < h:
+            l_next = torch.cat([l_next, zero], -3)
+        f = chol_blocked(d[..., 1::2, :, :])
+        finv = tril_inv(f)
+        a = finv @ l_odd
+        b = finv @ l_next.mT
+        ata = a.mT @ a                      # hits even 2t
+        btb = b.mT @ b                      # hits even 2t+2
+        if h < he:                          # m odd: the last even has no odd above
+            ata = torch.cat([ata, zero], -3)
+        btb_prev = torch.cat([zero, btb[..., :he - 1, :, :]], -3)
+        d = d[..., 0::2, :, :] - ata - btb_prev
+        c = b.mT @ a                        # B_t^T A_t
+        lo = torch.cat([zero, -c[..., :he - 1, :, :]], -3)
+        levels.append((f, a, b))
+        m = he
+    return levels, _cholesky(d[..., 0, :, :])
+
+
+def _cr_interleave(x_even, x_odd):
+    """Interleave (..., he, kb) evens with (..., h, kb) odds, he - h in
+    {0, 1}."""
+    h = x_odd.shape[-2]
+    pairs = torch.stack([x_even[..., :h, :], x_odd], -2).flatten(-3, -2)
+    return torch.cat([pairs, x_even[..., h:, :]], -2)
+
+
+def _cr_reduce(levels, bp, solve_odd):
+    """Reduce the right-hand side bp (..., nb, kb) down the levels: returns
+    the root's right-hand side (..., kb) and each level's u = F^-1 b_odd
+    (``solve_odd(level, b_odd)``)."""
+    b = bp
+    us = []
+    for level in levels:
+        _, a, bt = level
+        he = b.shape[-2] - b.shape[-2] // 2
+        u = solve_odd(level, b[..., 1::2, :])            # (..., h, kb)
+        corr_a = _mv(a.mT, u)                             # at even 2t
+        if corr_a.shape[-2] < he:                         # m odd
+            corr_a = torch.cat([corr_a, _zero_row(corr_a)], -2)
+        corr_b = _mv(bt.mT, u)                            # at even 2t+2
+        corr_b = torch.cat([_zero_row(corr_b), corr_b[..., :he - 1, :]],
+                           -2)
+        b = b[..., 0::2, :] - corr_a - corr_b
+        us.append(u)
+    return b[..., 0, :], us
+
+
+def _cr_back(levels, us, x_root, solve_odd_t):
+    """Substitute back up the levels from the root's solution (..., kb):
+    x_{2t+1} = F^-T (u_t - A_t x_2t - B_t x_{2t+2})."""
+    x = x_root[..., None, :]
+    for level, u in zip(reversed(levels), reversed(us)):
+        _, a, bt = level
+        h = u.shape[-2]
+        x_up = x[..., 1:h + 1, :]
+        if x_up.shape[-2] < h:                            # m even
+            x_up = torch.cat([x_up, _zero_row(x_up)], -2)
+        rhs = u - _mv(a, x[..., :h, :]) - _mv(bt, x_up)
+        x = _cr_interleave(x, solve_odd_t(level, rhs))
+    return x
+
+
+def cr_substitute(levels, f_root, bp):
+    """Solve through a cyclic-reduction factor: bp (..., nb, kb) -> x
+    (..., nb, kb), by triangular solves."""
+    root, us = _cr_reduce(levels, bp,
+                          lambda lv, r: _btsolve(lv[0], r[..., None])[..., 0])
+    x_root = _btsolve_t(f_root, _btsolve(f_root, root[..., None]))[..., 0]
+    return _cr_back(levels, us, x_root,
+                    lambda lv, r: _btsolve_t(lv[0], r[..., None])[..., 0])
+
+
+def cr_invert(levels, f_root):
+    """Explicit inverses of every CR triangular factor, so that a
+    substitution is batched matrix-vector products only (the
+    preconditioner apply of ``make_banded_mixed``, once a CG round).
+    Returns (inv_levels, root_inv): per level (F^-1, A, B), and the root's
+    inverse factor."""
+    return [(tril_inv(f), a, b) for f, a, b in levels], tril_inv(f_root)
+
+
+def cr_substitute_inv(inv_levels, root_inv, bp):
+    """``cr_substitute`` on precomputed inverse factors."""
+    root, us = _cr_reduce(inv_levels, bp, lambda lv, r: _mv(lv[0], r))
+    x_root = _mv(root_inv.mT, _mv(root_inv, root))
+    return _cr_back(inv_levels, us, x_root, lambda lv, r: _mv(lv[0].mT, r))
+
+
+def solve_band_cr(bl: BandCholLayout, vals, b):
+    """Banded solve by cyclic reduction: the contract of
+    ``solve_band_chol`` (plain scatter, Jacobi scaling, vals' dtype) with a
+    log-depth batched factorization."""
+    r_blocks, dinv_p = _prepare_blocks(bl, vals)
+    levels, f_root = cr_factorize(r_blocks)
+    return unscale(bl, cr_substitute(levels, f_root,
+                                     scale_rhs(bl, b, dinv_p)), dinv_p)
+
+
+# ------------------------------------------------------------------
+# Selected inversion: the marginal covariances.
+# ------------------------------------------------------------------
+
+
+def _selected_inverse(bl: BandCholLayout, vals, factorize=factorize_plain,
+                      assemble=None):
+    """The backward selected-inverse recursion on the Jacobi-scaled band.
+    With the chain's inverse factors ldinv_j = Ld_j^-1 and panels S_j =
+    lp[j + 1] (the coupling of block j + 1 to j, times ldinv_j^T):
+
+        C_NN = G_N,   G_j = Ld_j^-T Ld_j^-1
+        C_jj = G_j + (S_j Ld_j^-1)^T C_{j+1,j+1} (S_j Ld_j^-1)
+        C_{j+1,j} = -C_{j+1,j+1} S_j Ld_j^-1
+
+    ``factorize(dsym, lcoup) -> (ldinv, lp)`` and ``assemble(bl, vals)``
+    are the chain's factorization and band assembly (default: the plain
+    ones). Returns (covs (..., nb, kb, kb), offs (..., max(nb - 1, 1), kb,
+    kb), dinv_p): covs[j] = C_jj and offs[j] = C_{j+1,j}. The recursion's
+    products are full f32 on the card: the package turns TF32 off when it
+    is imported."""
+    r_blocks, dinv_p = _prepare_blocks(bl, vals, assemble)
+    ldinv, lp = factorize(*split_blocks(r_blocks))
+    cov = ldinv[..., -1, :, :].mT @ ldinv[..., -1, :, :]
+    covs, offs = [cov], []
+    for j in reversed(range(bl.nb - 1)):
+        ld_inv = ldinv[..., j, :, :]
+        s_ld_inv = lp[..., j + 1, :, :] @ ld_inv           # S_j Ld_j^-1
+        offs.append(-cov @ s_ld_inv)                       # C_{j+1,j}
+        cov = ld_inv.mT @ ld_inv + s_ld_inv.mT @ cov @ s_ld_inv
+        covs.append(cov)
+    covs = torch.stack(covs[::-1], -3)
+    offs = torch.stack(offs[::-1], -3) if offs else torch.zeros_like(covs)
+    return covs, offs, dinv_p
+
+
+def marginal_covariances(bl: BandCholLayout, vals, factorize=factorize_plain,
+                         assemble=None):
+    """Marginal variances diag(H^-1) (..., n) in the original dof order,
+    from the selected inverse's diagonal blocks (O(nb kb^3), no dense
+    inverse). ``factorize``/``assemble`` as in ``_selected_inverse``."""
+    covs, _, dinv_p = _selected_inverse(bl, vals, factorize, assemble)
+    var_p = torch.diagonal(covs, dim1=-2, dim2=-1).reshape(dinv_p.shape)
+    return (var_p * dinv_p ** 2)[..., _index(bl.inv_perm, var_p.device)]
+
+
+def marginal_node_blocks(bl: BandCholLayout, vals, node_offsets, node_sizes,
+                         pad_size=6, factorize=factorize_plain, assemble=None):
+    """Per-node marginal covariance blocks of H^-1, (..., N, pad_size,
+    pad_size) with identity padding past each node's size. node_offsets
+    and node_sizes (N,) are each node's first original dof and its size.
+    Any dof pair within the band is at most one kb-block apart, so every
+    within-node entry lies in a diagonal block C_jj or in C_{j+1,j}."""
+    n, kb = bl.n, bl.kb
+    covs, offs, dinv_p = _selected_inverse(bl, vals, factorize, assemble)
+    batch = dinv_p.shape[:-1]
+    diag_buf = covs.reshape(batch + (-1,))
+    off_buf = offs.reshape(batch + (-1,))
+
+    # host plan: entry (a, b) of node k -> which buffer, flat index
+    inv = torch.as_tensor(bl.inv_perm).cpu().numpy().astype(np.int64)
+    offsets = np.asarray(node_offsets, np.int64)
+    sizes = np.asarray(node_sizes, np.int64)
+    n_nodes = len(offsets)
+    where = np.zeros((n_nodes, pad_size, pad_size), np.int8)  # 0 diag, 1 off, 3 pad
+    idx = np.zeros((n_nodes, pad_size, pad_size), np.int64)
+    for a in range(pad_size):
+        for b_ in range(pad_size):
+            in_node = (a < sizes) & (b_ < sizes)
+            pa = inv[np.minimum(offsets + a, n - 1)]
+            pb = inv[np.minimum(offsets + b_, n - 1)]
+            ja, jb = pa // kb, pb // kb
+            ra, rb = pa % kb, pb % kb
+            same = ja == jb
+            a_hi = ja == jb + 1   # entry of C_{ja, jb} = offs[jb]
+            flat = np.where(same, ja * kb * kb + ra * kb + rb,
+                            np.where(a_hi, jb * kb * kb + ra * kb + rb,
+                                     ja * kb * kb + rb * kb + ra))
+            where[:, a, b_] = np.where(in_node, np.where(same, 0, 1), 3)
+            idx[:, a, b_] = np.where(in_node, flat, 0)
+
+    dev = dinv_p.device
+    where_t = torch.as_tensor(where, device=dev)
+    idx_t = torch.as_tensor(idx, device=dev)
+    from_diag = diag_buf[..., idx_t]
+    from_off = off_buf[..., idx_t.clamp(max=off_buf.shape[-1] - 1)]
+    scaled = torch.where(where_t == 0, from_diag,
+                         torch.where(where_t == 3, 0.0, from_off))
+    # undo the Jacobi scaling: C = dinv_a C_scaled dinv_b
+    dinv_orig = dinv_p[..., _index(inv, dev)]
+    cols = np.minimum(offsets[:, None] + np.arange(pad_size)[None, :], n - 1)
+    da = dinv_orig[..., _index(cols, dev)]                      # (..., N, pad)
+    inside = torch.as_tensor(np.arange(pad_size)[None, :] < sizes[:, None],
+                             device=dev)
+    da = torch.where(inside, da, 1.0)
+    pad_eye = torch.as_tensor(
+        (np.arange(pad_size)[None, :, None] == np.arange(pad_size)[None, None, :])
+        & (np.arange(pad_size)[None, :, None] >= sizes[:, None, None]),
+        dtype=dinv_p.dtype, device=dev)
+    return scaled * da[..., :, None] * da[..., None, :] + pad_eye

@@ -12,6 +12,10 @@ with xp the band-space x in (nb + 2*half, 128) blocks, zero-padded by
 host (``build_banded``); the band values are one scatter per GN step
 (``band_values``), amortized over every CG round.
 
+Every function takes a fleet's leading batch axis: vals (B, nnz) gives
+hb (B, nb, kb, 128, 128), and x, xp and y gain the same axis; the plan is
+the graphs' shared one.
+
 ``banded_matvec_plain`` is the plain version of the CUDA kernel K3
 (``banded_kernels.banded_matvec_kernel``); ``make_banded_matvec`` takes
 one or the other.
@@ -98,46 +102,52 @@ def as_index(a, device):
 
 
 def summed_values(layout, vals):
-    """Triplet values with duplicates summed, one per ELL entry in
-    (row, col) order: (ell_nnz,). The sum is an ``index_add_``, atomic on
-    the card, so there the order of a duplicate's terms varies from run
-    to run."""
+    """Triplet values (..., nnz) with duplicates summed, one per ELL entry
+    in (row, col) order: (..., ell_nnz). The sum is an ``index_add_``,
+    atomic on the card, so there the order of a duplicate's terms varies
+    from run to run."""
     seg = as_index(layout.ell_seg, vals.device)
     order = as_index(layout.ell_order, vals.device)
-    return vals.new_zeros(layout.ell_nnz).index_add_(0, seg, vals[order])
+    return vals.new_zeros(vals.shape[:-1] + (layout.ell_nnz,)).index_add_(
+        -1, seg, vals[..., order])
 
 
 def band_values(blayout: BandedLayout, layout, vals):
-    """Triplet values -> (nb, kb, 128, 128) band tensor: the summed
-    values, then one unique scatter into the band."""
-    flat = vals.new_zeros(blayout.nb * blayout.kb * LANE * LANE)
+    """Triplet values (..., nnz) -> (..., nb, kb, 128, 128) band tensor:
+    the summed values, then one unique scatter into the band."""
+    batch = vals.shape[:-1]
+    flat = vals.new_zeros(batch + (blayout.nb * blayout.kb * LANE * LANE,))
     pos = as_index(blayout.ell_to_block, vals.device)
-    flat[pos] = summed_values(layout, vals)
-    return flat.view(blayout.nb, blayout.kb, LANE, LANE)
+    flat[..., pos] = summed_values(layout, vals)
+    return flat.view(batch + (blayout.nb, blayout.kb, LANE, LANE))
 
 
 def _pad_x_blocks(blayout: BandedLayout, xb):
-    """Band-space x (n,) -> (nb + 2*half, 128) zero-padded block stack."""
+    """Band-space x (..., n) -> (..., nb + 2*half, 128) zero-padded block
+    stack."""
     before = blayout.half * LANE
     after = (blayout.nb + blayout.half) * LANE - blayout.n
-    return torch.nn.functional.pad(xb, (before, after)).view(-1, LANE)
+    return torch.nn.functional.pad(xb, (before, after)).view(
+        xb.shape[:-1] + (-1, LANE))
 
 
 def banded_matvec_plain(hb, xp_blocks):
     """Plain version of K3 (the JAX package's ``banded_matvec_jnp``):
-    y_I = sum_d hb[I, d] @ xp_blocks[I + d], returned flat (nb*128,)."""
-    nb, kb = hb.shape[0], hb.shape[1]
+    y_I = sum_d hb[..., I, d] @ xp_blocks[..., I + d], returned flat
+    (..., nb*128)."""
+    nb, kb = hb.shape[-4], hb.shape[-3]
     idx = (torch.arange(nb, device=hb.device)[:, None]
            + torch.arange(kb, device=hb.device)[None, :])  # (nb, kb)
-    windows = xp_blocks[idx]  # (nb, kb, LANE)
-    return torch.einsum("ndij,ndj->ni", hb, windows).reshape(-1)
+    windows = xp_blocks[..., idx, :]  # (..., nb, kb, LANE)
+    return torch.einsum("...ndij,...ndj->...ni", hb, windows).reshape(
+        hb.shape[:-4] + (-1,))
 
 
 def make_banded_matvec(blayout: BandedLayout, layout, vals, use_kernel=True):
-    """Closure mapping dof-space x -> dof-space H @ x through band space.
-    ``use_kernel=True`` takes K3's wrapper, which launches K3 for values
-    on the card and runs the plain version on the CPU; ``False`` takes
-    the plain version everywhere."""
+    """Closure mapping dof-space x (..., n) -> dof-space H @ x through band
+    space, x's batch shape that of vals. ``use_kernel=True`` takes K3's
+    wrapper, which launches K3 for values on the card and runs the plain
+    version on the CPU; ``False`` takes the plain version everywhere."""
     from rustrobotics_tpu_torch.ops.banded_kernels import banded_matvec_kernel
 
     hb = band_values(blayout, layout, vals)
@@ -146,6 +156,6 @@ def make_banded_matvec(blayout: BandedLayout, layout, vals, use_kernel=True):
     spmv = banded_matvec_kernel if use_kernel else banded_matvec_plain
 
     def matvec(x):
-        return spmv(hb, _pad_x_blocks(blayout, x[perm]))[inv]
+        return spmv(hb, _pad_x_blocks(blayout, x[..., perm]))[..., inv]
 
     return matvec

@@ -349,14 +349,18 @@ def test_make_optimize_batch_kernel_backend_on_cpu():
 
 
 def test_make_optimize_batch_rejects():
+    """The host solvers and unknown names raise; every device backend of
+    make_optimize builds (the PCG ones run in tests/test_torch_fleet_pcg.py)."""
     _, _, fl, graphs = fleet(64)
-    with pytest.raises(ValueError, match="device backend"):
-        tpgo.make_optimize_batch(graphs[0], backend="host", device="cpu")
-    for be in ("cg", "cg-banded", "cg-banded-jnp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for be in ("host", "native"):
+        with pytest.raises(ValueError, match="device backend"):
             tpgo.make_optimize_batch(graphs[0], backend=be, device="cpu")
-    with pytest.raises(ValueError, match="backend"):
-        tpgo.make_optimize_batch(graphs[0], backend="schur", device="cpu")
+    for be in ("cg", "cg-banded", "cg-banded-jnp", "schur", "banded-cr",
+               "banded-mixed"):
+        assert tpgo.make_optimize_batch(graphs[0], backend=be,
+                                        device="cpu").backend == be
+    with pytest.raises(ValueError, match="unknown backend"):
+        tpgo.make_optimize_batch(graphs[0], backend="pallas", device="cpu")
     run = tpgo.make_optimize_batch(fl, num_iterations=1, device="cpu")
     with pytest.raises(ValueError, match="stack_graphs"):
         run(graphs[0])

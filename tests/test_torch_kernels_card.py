@@ -384,3 +384,112 @@ def test_sphere_kernels_track_plain(cuda_device):
     assert it.tolist() == [4] * 4
     assert bak.LAUNCHES["assemble_batch"] == before + 4
     assert torch.isfinite(errors).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_batched_banded_matvec_bit_equal(cuda_device, batch):
+    """K3 over a fleet axis (B, nb, kb, 128, 128) at corridor-1728's band
+    shape: one launch a call, and graph i equals the one-graph call on
+    graph i bit for bit (each warp sums in the same order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    nb, kb = 41, 9
+    hb = torch.randn(batch, nb, kb, 128, 128, generator=gen,
+                     device=cuda_device)
+    xp = torch.randn(batch, nb + kb - 1, 128, generator=gen,
+                     device=cuda_device)
+    before = bmk.LAUNCHES["banded_matvec"]
+    y = bmk.banded_matvec_kernel(hb, xp)
+    torch.cuda.synchronize()
+    assert bmk.LAUNCHES["banded_matvec"] == before + 1
+    assert y.shape == (batch, nb * 128)
+    for i in range(batch):
+        assert torch.equal(y[i], bmk.banded_matvec_kernel(hb[i].contiguous(),
+                                                          xp[i].contiguous()))
+
+
+@pytest.mark.cuda
+def test_batched_banded_matvec_matches_plain(cuda_device):
+    """Batched K3 against the batched plain version: 1e-5 of max|y|, the
+    one-graph tolerance; a second batch axis is refused."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    hb = torch.randn(3, 7, 5, 128, 128, generator=gen, device=cuda_device)
+    xp = torch.randn(3, 11, 128, generator=gen, device=cuda_device)
+    y = bmk.banded_matvec_kernel(hb, xp)
+    want = banded.banded_matvec_plain(hb, xp)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+    with pytest.raises(ValueError, match="one batch axis"):
+        bmk.banded_matvec_kernel(hb[None], xp[None])
+
+
+@pytest.mark.cuda
+def test_fleet_cg_banded_runs_the_kernel(cuda_device, monkeypatch):
+    """make_optimize_batch(backend="cg-banded") launches K3 once a PCG
+    round for the whole fleet, never the plain SpMV, and every row tracks
+    its one-graph cg-banded run."""
+    from rustrobotics_tpu_torch.mapping import solvers
+
+    graphs, fleet = _fleet(cuda_device, closure_span=96)
+    kw = dict(num_iterations=3, tolerance=0.0, backend="cg-banded",
+              cg_tol=1e-6, cg_maxiter=400)
+    runs = [make_optimize(graphs[0], **kw)(g)[1] for g in graphs]
+    pcg, rounds = solvers.pcg, []
+
+    def recording(*args, **kwargs):
+        x, k = pcg(*args, **kwargs)
+        rounds.append(int(k.max()))
+        return x, k
+
+    def no_plain(*args):
+        raise AssertionError("the plain SpMV ran on the card's path")
+
+    monkeypatch.setattr(solvers, "pcg", recording)
+    monkeypatch.setattr(banded, "banded_matvec_plain", no_plain)
+    monkeypatch.setattr(bmk, "banded_matvec_plain", no_plain)
+    before = bmk.LAUNCHES["banded_matvec"]
+    _, errors, it = make_optimize_batch(graphs[0], **kw)(fleet)
+    assert it.tolist() == [3, 3, 3]
+    assert bmk.LAUNCHES["banded_matvec"] - before == sum(rounds) > 0
+    for i, want in enumerate(runs):
+        big = want > 1.0
+        assert big.sum() >= 2
+        torch.testing.assert_close(errors[i][big], want[big], rtol=1e-3,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+def test_marginals_through_kernels_match_plain(cuda_device):
+    """marginal_variances and pose_covariances of an f32 graph on the
+    card assemble with K4 and factor with K1, and agree with the plain f32
+    chain on the card: 3e-2 of the largest variance and block entry,
+    about 10x the H100's reading (3.2e-3; the undamped system is at f32's
+    edge, and K1's factor differs from the plain chain's there)."""
+    from rustrobotics_tpu_torch.mapping.pgo import (
+        marginal_variances,
+        pose_covariances,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import (
+        marginal_covariances,
+        marginal_node_blocks,
+    )
+
+    g = synthetic_corridor_graph_2d(256, num_landmarks=4, closure_span=32,
+                                    device=cuda_device, dtype=torch.float32)
+    bl = build_band_chol(build_layout(g)).to(cuda_device)
+    vals, _, _ = system_values(g, 0.0)
+    before = {**bk.LAUNCHES, **bak.LAUNCHES}
+    var = marginal_variances(g)
+    blocks = pose_covariances(g)
+    torch.cuda.synchronize()
+    after = {**bk.LAUNCHES, **bak.LAUNCHES}
+    assert after["factorize"] == before["factorize"] + 2
+    assert after["assemble_b1"] == before["assemble_b1"] + 2
+    var_p = marginal_covariances(bl, vals)
+    offs = g.pose2_offsets.cpu().numpy()
+    blocks_p = marginal_node_blocks(bl, vals, offs, [3] * len(offs),
+                                    pad_size=3)
+    assert torch.isfinite(var).all() and (var > 0).all()
+    for got, want in ((var, var_p), (blocks, blocks_p)):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 3e-2, err

@@ -106,8 +106,10 @@ def test_default_device_is_cuda(graphs):
 
 def test_unknown_backend_raises(graphs):
     _, port = graphs
-    with pytest.raises(ValueError, match="backend"):
-        tpgo.make_optimize(port, backend="schur", device="cpu")
+    for driver in (tpgo.make_optimize, tpgo.make_optimize_batch,
+                   tpgo.optimize):
+        with pytest.raises(ValueError, match="unknown backend"):
+            driver(port, backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="robust"):
         tpgo.make_optimize(port, robust="tukey", device="cpu")(port)
     assert float(tpgo.global_error(port)) == pytest.approx(
