@@ -84,6 +84,35 @@ Phases; any failure ends the script with a non-zero exit code:
       SuperLU solve), each held to the banded-kernel path's χ² anchors;
    i. auto-measure on corridor-1728 and sphere-2500: each candidate's time
       and the winner;
+   j. bootstrap: corridor-1728 with every pose zeroed, GN 10 on
+      banded-kernel without initialization (printed), then
+      chordal_init_se2 and GN 10; sphere-2500 with identity poses,
+      chordal_init_se3 and LM 6; f32 on the card. The chordal graphs on
+      the card, their |pose| column sums within CHORDAL_RTOL of the JAX f64
+      run's, their χ² below CHORDAL_CHI2_MAX, GN errors[10] < 1e-2, the
+      sphere's LM within BOOT_LM_FACTOR of its own LM run; the host seconds
+      of each chordal call printed; K4's, K1's and K2's counters must move;
+   k. posegraph: corridor-1728 and sphere-2500 written as g2o files; the
+      native parser (no fallback) bit-equal to the Python one; PoseGraph(
+      path).optimize(10, backend="banded-kernel") in f32 against optimize
+      on the same graph (PARITY_TOL["solve"] on entries above 1),
+      corridor-1728's iteration 10; K4, K1 and K2 launch;
+   l. fixed-lag: the circle session of the fixed-lag tests, FL_STEPS steps
+      through W=FL_WINDOW, C=FL_CAPACITY, a closure at each revisit, f32
+      on the card against f64 on the CPU (FL_POSE_TOL at every step), RMSE
+      against dead reckoning (FL_RMSE_FACTOR), every state tensor on the
+      card; steps/s, device launches per advance and the idle share
+      printed;
+   m. frontend: a synthetic SLAM-course log (FE_POSES poses along
+      corridor-1728's path, FE_LANDMARKS landmarks) loaded, built into a
+      graph by build_pose_graph_from_slam_course, LM FE_ITERS on
+      banded-kernel in f32: a band plan; errors[-1] < errors[0] / 2, as
+      the JAX package's test holds it, and the final graph's χ² within
+      FE_FINAL_RTOL of banded-direct's; K4, K1 and K2 launch; on K4's band
+      of banded-direct's final graph at λ = FE_BREAK_LAM (near singular in
+      f32: whether the f64 chain breaks down on it is printed), K1 keeps
+      every pivot, as the plain chain does, within FE_K1_TOL of it; landmark
+      errors and LM it/s printed;
 5. times from CUDA events: each kernel, its plain version and a library
    yardstick, each beside its bound, as device time a call with the calls
    queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
@@ -98,7 +127,9 @@ Phases; any failure ends the script with a non-zero exit code:
    factorization and the panel kernel's µs per launch;
 7. one JSON line describing the kernels (K1, K2, K4 and K5 with their
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
-   under *_b8 keys), then the contract line {"ok": true, "device": {...}}
+   under *_b8 keys; K1, K2 and K4 with the launches of phases j, k and m
+   under bootstrap_launches, posegraph_launches and frontend_launches),
+   then the contract line {"ok": true, "device": {...}}
    last.
 """
 
@@ -219,8 +250,57 @@ MARGINAL_RULE = 4.0
 MARGINAL_TOL = {"sphere-2500": {"f64": 0.5, "plain": 0.5}}
 # Solver backends on corridor-1728, GN 10 (f32; native in f64 on the host):
 # held to GN_CHI2 as the banded-kernel path is.
+# The front-end cell's synthetic SLAM-course log (write_slam_course): a
+# landmark is sighted from the poses within SLAM_SIGHT_RADIUS metres; noise
+# σ on each odometry component and on range and bearing.
+SLAM_SIGHT_RADIUS, SLAM_ODOM_NOISE, SLAM_MEAS_NOISE = 5.0, 0.01, 0.05
 BACKEND_RUNS = ("banded-cr", "banded-mixed high", "banded-mixed bf16",
                 "schur", "native")
+
+# bootstrap: corridor-1728 with every pose zeroed and sphere-2500 with every
+# pose the identity, through chordal initialization. The measurements are
+# exact, so the JAX package's f64 chordal graphs are the optimum up to
+# rounding: χ² 4.2749913158065936e-19 (2D) and 5.301641884414783e-22 (3D),
+# which no f32 graph can be held to relatively. The chordal result is held
+# instead to the JAX f64 run's column sums of |poses| (and of |landmarks|),
+# within CHORDAL_RTOL, and its f32 χ² to CHORDAL_CHI2_MAX (the corridor's
+# errors[10] gate).
+CHORDAL_CHI2_2D, CHORDAL_CHI2_3D = 4.2749913158065936e-19, 5.301641884414783e-22
+CHORDAL_SUMS_2D = (742339.1795735484, 74458.27784810352, 175.6049604980097)
+CHORDAL_LM_SUMS_2D = (13744.274877429358, 1335.4930475857905)
+CHORDAL_SUMS_3D = (10120.446184907902, 10155.324641866046, 24999.999999993062,
+                   1028.7054318460932, 996.8849158923207, 1028.7054318460928,
+                   996.8849158923215)
+CHORDAL_RTOL, CHORDAL_CHI2_MAX = 1e-4, 1e-2
+# sphere-2500's LM 6 from its chordal graph ends within BOOT_LM_FACTOR x
+# the χ² that LM 6 reaches from sphere-2500's own initial guess (both at
+# f32's floor, ~1e-6 in the port on the CPU), or below BOOT_LM_FLOOR.
+BOOT_LM_FACTOR, BOOT_LM_FLOOR = 10.0, 1e-5
+# fixed-lag: the circle session (circle_data) of FL_STEPS steps through a
+# window of FL_WINDOW poses and FL_CAPACITY closure slots, a closure at
+# each revisit; f32 on the card against f64 on the CPU through the port
+# (FL_POSE_TOL: ~25x the port's f32 reading on the CPU, 4.1e-4).
+FL_STEPS, FL_WINDOW, FL_CAPACITY, FL_CIRCLE = 400, 32, 16, 12
+FL_TRACED = 2 * FL_WINDOW  # steps of the profiled session
+FL_POSE_TOL = 1e-2
+# tests/test_fixed_lag.py holds the RMSE below dead reckoning's / 2.5 at
+# W = 16, C = 8. At W = 32 the JAX package's smoother itself lands between
+# dead reckoning and that factor over these 400 steps, and the port equals
+# it pose for pose (tests/test_torch_fixed_lag.py::
+# test_window32_session_matches_jax, f64 on the CPU), so the factor is held
+# on a W = 16, C = 8 session of the same steps, and the W = 32 session
+# must beat dead reckoning.
+FL_RMSE_FACTOR, FL_TEST_WINDOW, FL_TEST_CAPACITY = 2.5, 16, 8
+# front end: the synthetic SLAM-course log (slam_course_world, numpy
+# default_rng(0)), LM FE_ITERS on banded-kernel in f32.
+FE_POSES, FE_LANDMARKS, FE_ITERS = 1728, 32, 30
+# The final graph's χ² against banded-direct's on the card (1034.1196 and
+# 1034.1156 on the H100, PERF.md § 6).
+FE_FINAL_RTOL = 1e-3
+# K1 against the plain chain on the front end's band at the damping where
+# an earlier K1 lost pivots (LM step 10: λ = 0.01 / 2^9): max|ldinv_kernel
+# L_plain - I| over the block rows read 2.3e-3 to 6.5e-3 on the H100.
+FE_BREAK_LAM, FE_K1_TOL = 0.01 / 2 ** 9, 5e-2
 
 
 def fail(msg):
@@ -436,6 +516,139 @@ def corrupt_closures(pp_from, pp_to, pp_z, seed=GNC_SEED, share=GNC_SHARE):
     mask = np.zeros(len(z), bool)
     mask[bad] = True
     return z, mask
+
+
+def graph_spec(graph):
+    """A port graph as a spec (numpy fields, total_dof, prior2, prior3),
+    the form sphere_graph returns."""
+    from rustrobotics_tpu_torch.mapping.g2o import FLOAT_FIELDS, INDEX_FIELDS
+
+    fields = {n: getattr(graph, n).double().cpu().numpy()
+              for n in FLOAT_FIELDS}
+    fields.update({n: getattr(graph, n).cpu().numpy() for n in INDEX_FIELDS})
+    return dict(fields=fields, total_dof=graph.total_dof,
+                prior2=graph.prior2, prior3=graph.prior3)
+
+
+def g2o_text(spec):
+    """A spec as g2o text, every float written exactly (repr): SE2 poses
+    get ids 0.., landmarks the ids after them, SE3 poses 0.. (the specs'
+    dof layout: poses first, in order). Pose-pose edges keep their order,
+    pose-landmark edges theirs, and the two are interleaved in the file."""
+    f = spec["fields"]
+    n2 = len(f["poses2"])
+    fmt = " ".join
+    lines = [f"VERTEX_SE2 {i} " + fmt(map(repr, map(float, p)))
+             for i, p in enumerate(f["poses2"])]
+    lines += [f"VERTEX_XY {n2 + i} " + fmt(map(repr, map(float, p)))
+              for i, p in enumerate(f["landmarks2"])]
+    for i, p in enumerate(f["poses3"]):
+        vals = [*p[:3], p[4], p[5], p[6], p[3]]  # the file's x y z w
+        lines.append(f"VERTEX_SE3:QUAT {i} " + fmt(map(repr, map(float,
+                                                                  vals))))
+    iu2, iu3, iu6 = np.triu_indices(2), np.triu_indices(3), np.triu_indices(6)
+    pp = [(k / len(f["pp_z"]), 0,
+           f"EDGE_SE2 {a} {b} " + fmt(map(repr, map(float, [*z, *om[iu3]]))))
+          for k, (a, b, z, om) in enumerate(zip(
+              f["pp_from"], f["pp_to"], f["pp_z"], f["pp_omega"]))]
+    pl = [(k / len(f["pl_z"]), 1,
+           f"EDGE_SE2_XY {a} {n2 + b} " + fmt(map(repr, map(float,
+                                                             [*z, *om[iu2]]))))
+          for k, (a, b, z, om) in enumerate(zip(
+              f["pl_pose"], f["pl_lm"], f["pl_z"], f["pl_omega"]))]
+    lines += [text for _, _, text in sorted(pp + pl)]
+    for a, b, z, om in zip(f["qq_from"], f["qq_to"], f["qq_z"],
+                           f["qq_omega"]):
+        vals = [*z[:3], z[4], z[5], z[6], z[3], *om[iu6]]
+        lines.append(f"EDGE_SE3:QUAT {a} {b} " + fmt(map(repr, map(float,
+                                                                     vals))))
+    return "\n".join(lines) + "\n"
+
+
+def _wrap(a):
+    return (a + np.pi) % (2.0 * np.pi) - np.pi
+
+
+def _compose2(a, b):
+    """SE2 a ∘ b for (3,) poses (numpy)."""
+    c, s = np.cos(a[2]), np.sin(a[2])
+    return np.array([a[0] + c * b[0] - s * b[1], a[1] + s * b[0] + c * b[1],
+                     _wrap(a[2] + b[2])])
+
+
+def _relative2(a, b):
+    """SE2 a⁻¹ ∘ b for (..., 3) poses (numpy)."""
+    c, s = np.cos(a[..., 2]), np.sin(a[..., 2])
+    dx, dy = b[..., 0] - a[..., 0], b[..., 1] - a[..., 1]
+    return np.stack([c * dx + s * dy, -s * dx + c * dy,
+                     _wrap(b[..., 2] - a[..., 2])], axis=-1)
+
+
+def corridor_path(num_poses):
+    """The ground-truth path of synthetic_corridor_graph_2d, relative to
+    its first pose, and its landmark anchors: (num_poses, 3) poses."""
+    s = np.arange(num_poses) * 0.5
+    gt = np.stack([s, 2.0 * np.sin(s * 0.05), 0.1 * np.cos(s * 0.05)],
+                  axis=-1)
+    return _relative2(gt[0], gt)
+
+
+def slam_course_world(num_poses, num_landmarks):
+    """corridor_path(num_poses) and num_landmarks landmarks 1.5 m to its
+    side at evenly spaced poses, as synthetic_corridor_graph_2d places
+    them."""
+    path = corridor_path(num_poses)
+    anchor = np.linspace(0, num_poses - 1, num_landmarks).astype(int)
+    return path, path[anchor, :2] + np.array([0.0, 1.5])
+
+
+def write_slam_course(directory, path, landmarks, seed=0,
+                      sight_radius=SLAM_SIGHT_RADIUS,
+                      odom_noise=SLAM_ODOM_NOISE, meas_noise=SLAM_MEAS_NOISE):
+    """A SLAM-course log of a robot driving ``path`` (T+1, 3) among
+    ``landmarks`` (K, 2): sensor_data.dat with T ODOMETRY records [rot1,
+    trans, rot2] (noise N(0, odom_noise²) on each), each followed by SENSOR
+    lines [id, range, bearing] for the landmarks within sight_radius of
+    the pose it reaches (noise N(0, meas_noise²) on range and bearing), and
+    world.dat with the landmarks (ids 1..K). numpy default_rng(seed)."""
+    import pathlib
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for p, q in zip(path[:-1], path[1:]):
+        dx, dy = q[0] - p[0], q[1] - p[1]
+        r1 = _wrap(np.arctan2(dy, dx) - p[2])
+        u = np.array([r1, np.hypot(dx, dy), _wrap(q[2] - p[2] - r1)])
+        u = u + rng.normal(0.0, odom_noise, 3)
+        out.append("ODOMETRY " + " ".join(map(repr, map(float, u))))
+        d = landmarks - q[:2]
+        rng_ = np.hypot(d[:, 0], d[:, 1])
+        for k in np.flatnonzero(rng_ <= sight_radius):
+            z = np.array([rng_[k], _wrap(np.arctan2(d[k, 1], d[k, 0]) - q[2])])
+            z = z + rng.normal(0.0, meas_noise, 2)
+            out.append(f"SENSOR {k + 1} " + " ".join(map(repr, map(float, z))))
+    directory = pathlib.Path(directory)
+    (directory / "sensor_data.dat").write_text("\n".join(out) + "\n")
+    (directory / "world.dat").write_text("".join(
+        f"{k + 1} {float(x)!r} {float(y)!r}\n"
+        for k, (x, y) in enumerate(landmarks)))
+
+
+def circle_data(steps, n_circle=12, seed=0):
+    """The circle session of the fixed-lag tests: a robot that steps 1 m
+    and turns 2π/n_circle each step, noisy odometry (σ 0.05, 0.05, 0.02)
+    from numpy default_rng(seed), closures of σ (0.02, 0.02, 0.01) drawn
+    from the same generator as the session adds them. Returns (truth
+    (steps+1, 3), odometry (steps, 3), sig_odo, sig_clo, rng)."""
+    rng = np.random.default_rng(seed)
+    step = np.array([1.0, 0.0, 2 * np.pi / n_circle])
+    gt = [np.zeros(3)]
+    for _ in range(steps):
+        gt.append(_compose2(gt[-1], step))
+    sig_odo = np.array([0.05, 0.05, 0.02])
+    sig_clo = np.array([0.02, 0.02, 0.01])
+    odom = step + rng.normal(0, sig_odo, (steps, 3))
+    return np.asarray(gt), odom, sig_odo, sig_clo, rng
 
 
 def port_graph(spec, device):
@@ -1969,6 +2182,439 @@ def auto_measure_phase(name, g32, device):
     return run.backend, run.backend_times
 
 
+def bootstrap_phase(device):
+    """Phase 4j: corridor-1728 with every pose zeroed, GN 10 on
+    banded-kernel without initialization (printed only), then
+    chordal_init_se2 and GN 10; sphere-2500 with identity poses,
+    chordal_init_se3 and LM 6; f32 on the card. Returns the path's
+    counts."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import (
+        chordal_init_se2,
+        chordal_init_se3,
+        global_error,
+    )
+    from rustrobotics_tpu_torch.mapping.pgo import make_optimize
+
+    g32 = corridor(1728, device).to(dtype=torch.float32)
+    g0 = g32.replace(poses2=torch.zeros_like(g32.poses2))
+    spec = sphere_graph()
+    own = port_graph(spec, device).to(dtype=torch.float32)
+    spec["fields"]["poses3"] = np.tile([0.0] * 3 + [1.0] + [0.0] * 3,
+                                       (len(spec["fields"]["poses3"]), 1))
+    s0 = port_graph(spec, device).to(dtype=torch.float32)
+    kw = dict(tolerance=0.0, backend="banded-kernel", device=device)
+    gn = make_optimize(g0, num_iterations=10, **kw)
+    lm = make_optimize(s0, num_iterations=6, solver="lm", **kw)
+    own_final = float(lm(own)[1][-1])
+    with counted_plain_scatter() as plain_calls:
+        reset_counts()
+        _, stalled, _ = gn(g0)
+        t0 = time.perf_counter()
+        gc = chordal_init_se2(g0)
+        t_se2 = time.perf_counter() - t0
+        _, err2, it2 = gn(gc)
+        t0 = time.perf_counter()
+        gc3 = chordal_init_se3(s0)
+        t_se3 = time.perf_counter() - t0
+        _, err3, it3 = lm(gc3)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    chi2_2d, chi2_3d = float(global_error(gc)), float(global_error(gc3))
+    err2, err3 = err2.double().cpu(), err3.double().cpu()
+
+    def rel_sums(t, want):
+        got = t.double().abs().sum(0).cpu().numpy()
+        return float(np.max(np.abs(got / np.asarray(want) - 1.0)))
+
+    sums2 = max(rel_sums(gc.poses2, CHORDAL_SUMS_2D),
+                rel_sums(gc.landmarks2, CHORDAL_LM_SUMS_2D))
+    sums3 = rel_sums(gc3.poses3, CHORDAL_SUMS_3D)
+    print(f"[bootstrap] corridor-1728 zeroed, GN 10 without initialization: "
+          f"{stalled.double().cpu().tolist()}", flush=True)
+    print(f"[bootstrap] chordal_init_se2 {t_se2:.4f} s on the host; chordal "
+          f"χ² {chi2_2d:.6g} (JAX f64 {CHORDAL_CHI2_2D:.6g}); |pose| sums "
+          f"{sums2:.3g} from JAX f64; GN 10 {err2.tolist()}", flush=True)
+    print(f"[bootstrap] sphere-2500 identity poses: chordal_init_se3 "
+          f"{t_se3:.4f} s on the host; chordal χ² {chi2_3d:.6g} (JAX f64 "
+          f"{CHORDAL_CHI2_3D:.6g}); |pose| sums {sums3:.3g} from JAX f64; "
+          f"LM 6 {err3.tolist()}; LM 6 from sphere-2500's own guess ends at "
+          f"{own_final:.6g}", flush=True)
+    print(f"[bootstrap] launches {launches}; plain band scatters "
+          f"{plain_calls[0]}", flush=True)
+    require(gc.poses2.device.type == gc.landmarks2.device.type
+            == gc3.poses3.device.type == "cuda"
+            and gc.poses2.dtype == gc3.poses3.dtype == torch.float32,
+            "chordal results on the card in f32")
+    require(sums2 <= CHORDAL_RTOL and sums3 <= CHORDAL_RTOL,
+            f"chordal poses' |column| sums within {CHORDAL_RTOL} of the JAX "
+            f"f64 run's (2D {sums2:.3g}, 3D {sums3:.3g})")
+    require(chi2_2d <= CHORDAL_CHI2_MAX and chi2_3d <= CHORDAL_CHI2_MAX,
+            f"chordal χ² {chi2_2d:.3g} (2D), {chi2_3d:.3g} (3D) <= "
+            f"{CHORDAL_CHI2_MAX}")
+    require(it2 == 10 and it3 == 6 and bool(torch.isfinite(err2).all())
+            and bool(torch.isfinite(err3).all()),
+            "bootstrap GN 10 and LM 6 ran, χ² finite")
+    require(err2[10] < 1e-2, f"GN errors[10] {err2[10]:.3g} < 1e-2 from "
+                             f"the chordal corridor")
+    limit = max(BOOT_LM_FACTOR * own_final, BOOT_LM_FLOOR)
+    require(err3[6] <= limit, f"sphere-2500 LM errors[6] {err3[6]:.3g} from "
+                              f"the chordal graph <= {limit:.3g}")
+    for key in ("assemble_b1", "factorize", "substitute"):
+        require(launches[key] > 0, f"{key} kernel launched on the bootstrap "
+                                   f"path")
+    require(plain_calls[0] == 0, "no plain band scatter on the bootstrap path")
+    return launches
+
+
+def posegraph_phase(device):
+    """Phase 4k: corridor-1728 and sphere-2500 written as g2o files; the
+    native parser against the Python one (bit for bit), then
+    PoseGraph(path).optimize(10, backend="banded-kernel") in f32 against
+    optimize on the same graph. Returns the PoseGraph runs' counts."""
+    import tempfile
+
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import g2o, g2o_native
+    from rustrobotics_tpu_torch.mapping.pgo import PoseGraph, optimize
+
+    require(g2o_native.native_available(), "native g2o parser built "
+                                           "(no Python fallback)")
+    total = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, spec in (("corridor-1728",
+                            graph_spec(corridor(1728, device))),
+                           ("sphere-2500", sphere_graph())):
+            path = f"{tmp}/{name}.g2o"
+            with open(path, "w") as fh:
+                fh.write(g2o_text(spec))
+            t0 = time.perf_counter()
+            native = g2o_native.parse_native(path)
+            t_native = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            python = g2o._parse_python(path)
+            t_python = time.perf_counter() - t0
+            same = native is not None and set(native) == set(python) and all(
+                np.array_equal(native[k], python[k])
+                and np.asarray(native[k]).dtype == np.asarray(python[k]).dtype
+                for k in python)
+            require(same, f"{name}: the native parse equals the Python one "
+                          f"bit for bit ({t_native:.4f} s against "
+                          f"{t_python:.4f} s)")
+            graph = g2o.load_g2o(path, dtype=torch.float32, device=device)
+            pg = PoseGraph(path, dtype=torch.float32, device=device)
+            reset_counts()
+            got = pg.optimize(10, backend="banded-kernel")
+            torch.cuda.synchronize()
+            launches = read_counts()
+            want = optimize(graph, 10, backend="banded-kernel",
+                            device=device).errors
+            n = min(len(got), len(want))
+            got_t, want_t = (torch.tensor(e[:n]) for e in (got, want))
+            rel = max_rel(got_t, want_t, want_t > 1.0)
+            print(f"[posegraph] {name}: PoseGraph.optimize {got}; optimize "
+                  f"{want}; iteration {pg.iteration}; launches {launches}",
+                  flush=True)
+            require(np.isfinite(got).all() and pg.iteration == len(got) - 1,
+                    f"{name} PoseGraph trace finite, iteration "
+                    f"{pg.iteration}")
+            if name == "corridor-1728":  # f32 ‖dx‖ stays above 1e-4 there
+                require(pg.iteration == 10, "corridor-1728 PoseGraph "
+                                            "iteration 10")
+            require(rel <= PARITY_TOL["solve"],
+                    f"{name} PoseGraph entries above 1 within "
+                    f"{PARITY_TOL['solve']} of optimize's ({rel:.3g})")
+            for key in ("assemble_b1", "factorize", "substitute"):
+                require(launches[key] > 0, f"{key} kernel launched on the "
+                                           f"{name} PoseGraph path")
+                total[key] = total.get(key, 0) + launches[key]
+    return total
+
+
+def fixed_lag_session(device, dtype, data, window=FL_WINDOW,
+                      capacity=FL_CAPACITY):
+    """The circle session through FixedLagSmoother on ``device``: a
+    closure at each revisit, from circle_data's draws (closure_plan).
+    Returns the smoother, the final state and the current pose after every
+    step."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import FixedLagSmoother
+
+    _, odom, sig_odo, sig_clo, closures = data
+    fls = FixedLagSmoother.create(
+        window=window, closure_capacity=capacity,
+        chain_omega=torch.diag(torch.tensor(1.0 / sig_odo ** 2, dtype=dtype)),
+        clos_omega=torch.diag(torch.tensor(1.0 / sig_clo ** 2, dtype=dtype)),
+        device=device)
+    odom = torch.tensor(odom, dtype=dtype, device=device)
+    ij = torch.tensor([c[1:3] for c in closures], device=device)
+    zs = torch.tensor(np.array([c[3] for c in closures]), dtype=dtype,
+                      device=device)
+    at = {c[0]: k for k, c in enumerate(closures)}
+    state = fls.init_state(torch.zeros(3, dtype=dtype, device=device))
+    poses = []
+    for t in range(len(odom)):
+        state = fls.advance(state, odom[t])
+        if t in at:
+            k = at[t]
+            state = fls.add_closure(state, ij[k, 0], ij[k, 1], zs[k])
+        poses.append(fls.current_pose(state))
+    return fls, state, torch.stack(poses)
+
+
+def closure_plan(window):
+    """circle_data(FL_STEPS) and its closures (step, i, j, z): at each
+    revisit, the newest window pose j to the one FL_CIRCLE steps back, z
+    drawn from circle_data's generator in session order, as
+    tests/test_fixed_lag.py draws them."""
+    gt, odom, sig_odo, sig_clo, rng = circle_data(FL_STEPS, FL_CIRCLE)
+    closures = []
+    for t in range(FL_STEPS):
+        j = min(t + 2, window) - 1
+        if t + 1 >= FL_CIRCLE and j - FL_CIRCLE >= 0:
+            closures.append((t, j - FL_CIRCLE, j, rng.normal(0, sig_clo, 3)))
+    return gt, (gt, odom, sig_odo, sig_clo, closures)
+
+
+def rmse_against_truth(poses, gt, odom):
+    """Trajectory RMSE (xy) of the current poses and of dead reckoning."""
+    est = np.concatenate([np.zeros((1, 3)), poses.double().cpu().numpy()])
+    dr = [np.zeros(3)]
+    for u in odom:
+        dr.append(_compose2(dr[-1], u))
+    dr = np.asarray(dr)
+    return tuple(float(np.sqrt(np.mean(np.sum((a[:, :2] - gt[:, :2]) ** 2,
+                                                  -1)))) for a in (est, dr))
+
+
+def fixed_lag_phase(device):
+    """Phase 4l: the fixed-lag smoother's circle session, f32 on the card
+    against f64 on the CPU through the port; RMSE against dead reckoning,
+    steps/s, device launches per advance and the idle share."""
+    import dataclasses
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    gt, data = closure_plan(FL_WINDOW)
+    odom, closures = data[1], data[4]
+    fixed_lag_session(device, torch.float32, data)  # warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, poses = fixed_lag_session(device, torch.float32, data)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _, _, ref = fixed_lag_session("cpu", torch.float64, data)
+    fields = {f.name: getattr(state, f.name)
+              for f in dataclasses.fields(state)}
+    diff = float((poses.double().cpu() - ref).abs().max())
+    e_fls, e_dr = rmse_against_truth(poses, gt, odom)
+    gt16, data16 = closure_plan(FL_TEST_WINDOW)
+    _, _, poses16 = fixed_lag_session(device, torch.float32, data16,
+                                      FL_TEST_WINDOW, FL_TEST_CAPACITY)
+    e16, _ = rmse_against_truth(poses16, gt16, odom)
+
+    # launches of one advance with the window full, then one traced session
+    fls, full, _ = fixed_lag_session(
+        device, torch.float32, (gt, odom[:FL_WINDOW + 1], *data[2:4], []))
+    u = torch.tensor(odom[0], dtype=torch.float32, device=device)
+    ij = torch.tensor([0, FL_CIRCLE], device=device)
+    fls.advance(full, u)
+    torch.cuda.synchronize()
+    # advance and add_closure read nothing back to the host: CUDA's sync
+    # debug mode raises on any operation that would wait for the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fls.add_closure(fls.advance(full, u), ij[0], ij[1], u)
+        no_sync = True
+    except RuntimeError as err:
+        no_sync = False
+        print(f"[fixed-lag] a step synchronized with the host: {err}",
+              flush=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fls.advance(full, u)
+        torch.cuda.synchronize()
+    per_advance = len([e for e in prof.events() if e.device_type
+                       == torch.autograd.DeviceType.CUDA]) / 10
+    # the traced session is FL_TRACED steps (the window fills, then slides):
+    # the profiler's event list of 400 steps takes minutes to build
+    short = (gt, odom[:FL_TRACED], *data[2:4],
+             [c for c in closures if c[0] < FL_TRACED])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fixed_lag_session(device, torch.float32, short)
+        torch.cuda.synchronize()
+    idle = idle_share(prof.events())
+    wall = statistics.median(walls)
+    print(f"[fixed-lag] {FL_STEPS} steps, W={FL_WINDOW}, C={FL_CAPACITY}, "
+          f"{len(closures)} closures: {FL_STEPS / wall:.4f} steps/s on the "
+          f"card (median of 3 sessions, {wall * 1e3:.4f} ms a session); "
+          f"{per_advance:.1f} device launches per advance (torch.profiler, "
+          f"the window full); device idle share of a traced session of "
+          f"{FL_TRACED} steps "
+          f"{'not measured' if idle is None else f'{idle:.4f}'}", flush=True)
+    print(f"[fixed-lag] current pose, card f32 against CPU f64: max |diff| "
+          f"{diff:.6g}; RMSE {e_fls:.6g} against dead reckoning's {e_dr:.6g}"
+          f"; W={FL_TEST_WINDOW}, C={FL_TEST_CAPACITY}: RMSE {e16:.6g}",
+          flush=True)
+    require(all(t.device.type == "cuda" for t in fields.values()),
+            "every fixed-lag state tensor on cuda")
+    require(no_sync, "advance and add_closure make no host read (CUDA sync "
+                     "debug mode)")
+    require(bool(torch.isfinite(poses).all()) and diff <= FL_POSE_TOL,
+            f"card current pose within {FL_POSE_TOL} of the CPU f64 run's at "
+            f"every step ({diff:.3g})")
+    require(e_fls < e_dr, f"W={FL_WINDOW} RMSE {e_fls:.4g} < dead "
+                          f"reckoning's {e_dr:.4g}")
+    require(e16 < e_dr / FL_RMSE_FACTOR,
+            f"W={FL_TEST_WINDOW} RMSE {e16:.4g} < dead reckoning's "
+            f"{e_dr:.4g} / {FL_RMSE_FACTOR}")
+    return dict(steps_per_s=FL_STEPS / wall, launches_per_advance=per_advance,
+                idle_share=idle)
+
+
+def frontend_dataset():
+    """The front end's SLAM-course log (slam_course_world at FE_POSES,
+    FE_LANDMARKS; write_slam_course with seed 0), loaded."""
+    import tempfile
+
+    from rustrobotics_tpu_torch.data import load_slam_course
+
+    path, landmarks = slam_course_world(FE_POSES, FE_LANDMARKS)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_slam_course(tmp, path, landmarks, seed=0)
+        return load_slam_course(tmp)
+
+
+def frontend_phase(device):
+    """Phase 4m: a synthetic SLAM-course log (write_slam_course) loaded,
+    built into a pose graph by the front end and run through LM FE_ITERS
+    on banded-kernel in f32, against the same on banded-direct. Returns the
+    path's counts."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import (
+        build_pose_graph_from_slam_course,
+        global_error,
+    )
+    from rustrobotics_tpu_torch.mapping.assemble import build_layout
+    from rustrobotics_tpu_torch.mapping.pgo import make_optimize
+    from rustrobotics_tpu_torch.ops.band_chol import build_band_chol
+
+    ds = frontend_dataset()
+    sightings = sum(len(s) for s in ds.sensors)
+    g = build_pose_graph_from_slam_course(ds, device=device)
+    bl = build_band_chol(build_layout(g))
+    require(bl is not None, "front-end graph has a band plan")
+    kw = dict(num_iterations=FE_ITERS, solver="lm", tolerance=0.0,
+              device=device)
+    lm = make_optimize(g, backend="banded-kernel", **kw)
+    with counted_plain_scatter() as plain_calls:
+        reset_counts()
+        out, err, it = lm(g)
+        torch.cuda.synchronize()
+        launches = read_counts()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm(g)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    out_d, err_d, _ = make_optimize(g, backend="banded-direct", **kw)(g)
+    err, err_d = err.double().cpu(), err_d.double().cpu()
+    final, final_d = float(global_error(out)), float(global_error(out_d))
+    lm_err = np.linalg.norm(out.landmarks2.double().cpu().numpy()
+                            - ds.landmarks, axis=-1)
+    lm_err0 = np.linalg.norm(g.landmarks2.double().cpu().numpy()
+                             - ds.landmarks, axis=-1)
+    nan_trials = int(torch.isnan(err).sum())
+    print(f"[frontend] log: {len(ds.odometry)} odometry records, "
+          f"{len(ds.landmarks)} landmarks, {sightings} sightings; graph "
+          f"n={g.total_dof}, kb={bl.kb}, nb={bl.nb}", flush=True)
+    print(f"[frontend] LM {FE_ITERS} banded-kernel {err.tolist()}",
+          flush=True)
+    print(f"[frontend] LM {FE_ITERS} banded-direct {err_d.tolist()}",
+          flush=True)
+    print(f"[frontend] final χ² banded-kernel {final:.8g}, banded-direct "
+          f"{final_d:.8g}; {nan_trials} rejected trials with a NaN χ² on "
+          f"banded-kernel, {int(torch.isnan(err_d).sum())} on banded-direct",
+          flush=True)
+    print(f"[frontend] landmark error against the truth: mean "
+          f"{lm_err.mean():.4f} m, max {lm_err.max():.4f} m (first sighting "
+          f"{lm_err0.mean():.4f}, {lm_err0.max():.4f}); {FE_ITERS / wall:.4f} "
+          f"LM it/s (median of 3 runs of {FE_ITERS}); launches {launches}; "
+          f"plain band scatters {plain_calls[0]}", flush=True)
+    k1_bad, plain_bad, f64_bad, resid = frontend_k1_check(out_d, bl, device)
+    print(f"[frontend] K4's band of banded-direct's final graph at λ = "
+          f"{FE_BREAK_LAM:.4g}: block rows with a non-finite entry: K1 "
+          f"{k1_bad}, plain chain {plain_bad}, the f64 chain on the same f32 "
+          f"band {f64_bad}; max|ldinv_kernel L_plain - I| {resid:.4g}",
+          flush=True)
+    require(it == FE_ITERS, f"front-end LM ran {FE_ITERS} iterations")
+    # NaN compares false: a NaN last trial fails here
+    require(err[-1] < err[0] / 2, f"front-end errors[-1] {float(err[-1]):.6g}"
+                                  f" < errors[0] / 2 ({float(err[0]):.6g})")
+    require(abs(final / final_d - 1) <= FE_FINAL_RTOL,
+            f"front-end final χ² within {FE_FINAL_RTOL} of banded-direct's")
+    require(not plain_bad, "plain chain finite on the front end's band")
+    require(not k1_bad and resid <= FE_K1_TOL,
+            f"K1 keeps every pivot on the front end's band, within "
+            f"{FE_K1_TOL} of the plain chain")
+    for key in ("assemble_b1", "factorize", "substitute"):
+        require(launches[key] > 0, f"{key} kernel launched on the front-end "
+                                   f"path")
+    require(plain_calls[0] == 0, "no plain band scatter on the front-end path")
+    return launches
+
+
+def frontend_k1_check(graph, bl, device):
+    """K1 against the plain chain on K4's band of ``graph`` at λ =
+    FE_BREAK_LAM: (K1's, the plain chain's and the f64 chain's block rows
+    with a non-finite entry, max|ldinv_kernel L_plain - I| over the rows;
+    inf when K1 lost a pivot)."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.assemble import system_values
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import (
+        _prepare_blocks,
+        split_blocks,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol_kernels import (
+        factorize_kernel,
+        factorize_plain,
+    )
+
+    vals, _, _ = system_values(graph.to(dtype=torch.float32), FE_BREAK_LAM)
+    dsym, lcoup = split_blocks(
+        _prepare_blocks(bl.to(device), vals, band_assemble_kernel)[0])
+    ld_k, _ = factorize_kernel(dsym, lcoup)
+    ld_p, _ = factorize_plain(dsym, lcoup)
+    ld_64, _ = factorize_plain(dsym.double(), lcoup.double())
+
+    def bad(t):
+        return torch.nonzero(
+            ~torch.isfinite(t).flatten(1).all(1)).flatten().tolist()
+
+    k1_bad, plain_bad = bad(ld_k), bad(ld_p)
+    resid = (math.inf if k1_bad or plain_bad
+             else max_eye_residual(ld_k, factor_of(ld_p)))
+    return k1_bad, plain_bad, bad(ld_64), resid
+
+
 K12_GROUPS = {"K4 band_assemble": "band_assemble",
               "K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_nt": "gemm_nt",
               "K1 trail_offdiag": "trail_offdiag",
@@ -1976,6 +2622,31 @@ K12_GROUPS = {"K4 band_assemble": "band_assemble",
 FLEET_GROUPS = {("K5" + k[2:] if k.startswith("K4") else k): v
                 for k, v in K12_GROUPS.items()}
 K3_GROUPS = {"K3 banded_matvec": "banded_matvec", "other": ""}
+
+
+def busy_window(events, dev):
+    """(window, busy) in µs: first to last profiler event, and the union
+    of the device events' intervals."""
+    window = (max(e.time_range.end for e in events)
+              - min(e.time_range.start for e in events))
+    busy, end = 0.0, -math.inf
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return window, busy
+
+
+def idle_share(events):
+    """The device's idle share of a profiler window, or None when the
+    profiler recorded no device event."""
+    import torch
+
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    window, busy = busy_window(events, dev)
+    return 1 - busy / window
 
 
 def trace(label, run, groups):
@@ -2003,12 +2674,7 @@ def trace(label, run, groups):
               "device time by kernel and idle share not measured",
               flush=True)
         return
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
-    busy, end = 0.0, -math.inf
-    for s, e in sorted((e.time_range.start, e.time_range.end) for e in dev):
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
+    window, busy = busy_window(events, dev)
     totals = {k: [0.0, 0] for k in groups}
     for e in dev:
         key = next(k for k, pat in groups.items() if pat in e.name)
@@ -2081,6 +2747,10 @@ def main() -> int:
     backends_phase(device)
     for name, graph in (("corridor-1728", g32), ("sphere-2500", g3)):
         auto_measure_phase(name, graph, device)
+    boot_launches = bootstrap_phase(device)
+    pg_launches = posegraph_phase(device)
+    fixed_lag_phase(device)
+    fe_launches = frontend_phase(device)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
     timed["banded_matvec"].update(k3_fleet_times(k3b))
@@ -2187,6 +2857,12 @@ def main() -> int:
         k.update(kb_3d=SPHERE_KB, launches_3d=count, max_abs_err_3d=err,
                  **{f"{key}_3d": t[key] for key in
                     ("ms", "plain_ms", "bound_ms", "library_ms")})
+    # this slice's paths: bootstrap, PoseGraph and the front end
+    for k, key in ((kernels[0], "factorize"), (kernels[1], "substitute"),
+                   (kernels[3], "assemble_b1")):
+        k.update(bootstrap_launches=boot_launches[key],
+                 posegraph_launches=pg_launches[key],
+                 frontend_launches=fe_launches[key])
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]

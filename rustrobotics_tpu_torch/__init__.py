@@ -4,10 +4,15 @@ The JAX package beside this one is the reference; every module here keeps
 its counterpart's name and function names and is tested against it on the
 same inputs. This package never imports JAX or ``rustrobotics_tpu``.
 
-Ported so far: pose-graph Gauss-Newton / Levenberg-Marquardt over the
-RCM-banded direct solver (``mapping.pgo.make_optimize``), with the banded
-factorization and substitution as hand-written CUDA kernels for Hopper
-(``ops.band_chol_kernels``, sources in ``csrc/``).
+Ported so far: pose-graph mapping (``mapping``): the g2o parsers (native
+C++ and Python), ``PoseGraph`` and Gauss-Newton / Levenberg-Marquardt on
+every solver backend (``mapping.pgo``: one graph or a fleet, SE2 and SE3,
+robust kernels, marginals), chordal initialization, the online fixed-lag
+smoother, the SLAM-course loader (``data``) and front end, and the
+plotting helpers (``utils.plot``). The banded assembly, factorization and
+substitution, and the block-banded SpMV, are hand-written CUDA kernels for
+Hopper (``ops.band_assemble_kernels``, ``ops.band_chol_kernels``,
+``ops.banded_kernels``; sources in ``csrc/``).
 
 Entry points take ``device=None`` and then run on ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions on the CPU.

@@ -36,13 +36,15 @@
 //      Linv[i, :i] = -Linv_ii (L[i, :i] Linv[:i, :i]), both products in
 //      one CTA per 16-column tile, the zero rows of the triangle skipped.
 // The panel kernel is the chain's critical part: each sub-panel's 32
-// dependent steps of shuffles, one reciprocal and FMAs are latency-bound.
+// dependent steps of shuffles, an IEEE square root and reciprocal and
+// FMAs are latency-bound.
 // The earlier panel kernel ran the 128-step recursion in shared memory
 // with two barriers a step; an 8-wide blocked variant of it in shared
 // memory gained only 14%, as each thread's loads and FMAs formed a
 // dependent chain: hence registers and warps. Every product sums over k in
-// ascending order, one FMA chain per output, so a result does not depend
-// on the tiling.
+// ascending order (the GEMMs one FMA chain per 32-deep k tile, the tiles
+// added in order; the others one chain per output), so a result does not
+// depend on the tile sizes.
 //
 // A fleet of B same-structure graphs runs as B chains side by side: every
 // kernel takes a grid axis over the graphs and per-graph strides, so the
@@ -129,8 +131,13 @@ constexpr size_t gemm_smem() {
 // memory, gemm_smem<BM>() bytes). LOWER: only the
 // tiles with tm >= tn (blockIdx.x enumerates them), and z, if not null,
 // gets zeros in tile (tm, tn) and its mirror. TRI_B: B is lower
-// triangular, so the k-range of a tile ends at n0 + BM. k runs from 0 to
-// the tile's end (at most K) in ascending order.
+// triangular, so the k-range of a tile ends at n0 + BM. Each BK-deep k
+// tile sums into a fresh FMA chain and the tiles' sums add from k = 0 up
+// (at most K): a two-level sum, whose rounding error grows with BK + K/BK
+// terms rather than K. D̂ = Dsym - lp lp^T cancels to a Schur complement
+// that is near singular in f32 on long pose chains, and on chip_smoke's
+// jittered fleet this brought K1's LM closer to the plain chain's than
+// one K-long chain per output did.
 template <int BM, bool LOWER, bool TRI_B, bool SUB_D>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_nt(int kb, int K, const float* __restrict__ A, size_t sa,
@@ -185,6 +192,7 @@ gemm_nt(int kb, int K, const float* __restrict__ A, size_t sa,
     cp_async_commit();
     const float* as = As + (t % GEMM_STAGES) * BM * GLD;
     const float* bs = Bs + (t % GEMM_STAGES) * BM * GLD;
+    float part[TM][TM] = {};
 #pragma unroll
     for (int k4 = 0; k4 < BK; k4 += 4) {
       float4 a[TM], b[TM];
@@ -198,12 +206,16 @@ gemm_nt(int kb, int K, const float* __restrict__ A, size_t sa,
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TM; ++j) {
-          acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-          acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-          acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-          acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+          part[i][j] = fmaf(a[i].x, b[j].x, part[i][j]);
+          part[i][j] = fmaf(a[i].y, b[j].y, part[i][j]);
+          part[i][j] = fmaf(a[i].z, b[j].z, part[i][j]);
+          part[i][j] = fmaf(a[i].w, b[j].w, part[i][j]);
         }
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TM; ++j) acc[i][j] += part[i][j];
   }
   if (SUB_D) D += g * sd;
 #pragma unroll
@@ -233,14 +245,15 @@ constexpr size_t PANEL_SMEM =
     (size_t)(PB_ACOL + PB_XST + PB_LC + PB_XN) * sizeof(float);
 constexpr int FACTOR_WARPS = 4;  // each factors [A11 | I], then a share of the dots
 
-// 1/d as the hardware reciprocal refined by one Newton step (FMAs):
-// within an ulp of the IEEE quotient for the positive normal pivots of an
-// SPD block, and without the IEEE division's special-case branch, which
-// sat on the panel's chain of dependent steps.
-__device__ __forceinline__ float recip(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  return fmaf(r, fmaf(-d, r, 1.f), r);
+// A pivot's scale 1/sqrt(d) as LAPACK's potf2 forms it: the IEEE square
+// root, then the IEEE reciprocal (NaN for a negative pivot). Two other
+// forms were tried on the H100 and rejected: the hardware estimate
+// refined by one Newton step sits below 1/sqrt(d) on average, a bias
+// that kept pivots but left GN on chip_smoke's jittered fleet short of
+// convergence in 10 steps, and the correctly rounded __frsqrt_rn lost
+// pivots on the front end's band that this form and the library keep.
+__device__ __forceinline__ float inv_sqrt(float d) {
+  return __frcp_rn(__fsqrt_rn(d));
 }
 
 // acc -= a . b, in order
@@ -338,32 +351,44 @@ panel_chol_inv(int kb, const float* __restrict__ a, size_t sa,
                             : acol[(c0 + p) * LDA + lane];
         lx[p] = (p == lane) ? 1.f : 0.f;
       }
-      // Row k is scaled by 1/sqrt(pivot) only at the end: the rows below
-      // take l_r l_c = A[r, k] A[k, c] / A[k, k] from its unscaled values.
-      // Two steps k, k + 1 at a time: rows k and k + 1 are read through
+      // A step is one Cholesky pivot: s = inv_sqrt(A[k, k]), one rounded
+      // value that scales both row k of [A | X] (the column of L below the
+      // pivot, by symmetry, and X's row k), and the rows below subtract
+      // l_r (s row k), l_r = A[r, k] s: the update is the exact product of
+      // kept factor entries, as in LAPACK's potf2, which scales its
+      // column by one rounded 1/L[k, k]. Unscaled (LDL^T) steps, which
+      // update with 1 / A[k, k] and scale X with 1 / sqrt(A[k, k]), two
+      // roundings of one pivot, lose pivots on chip_smoke's front-end band
+      // (a Schur complement chain near singular in f32) partway down the
+      // chain, where the plain chain keeps them. Two
+      // steps k, k + 1 at a time: rows k and k + 1 are read through
       // shuffles as they stand before step k, and every lane forms row
-      // k + 1 after step k itself (the same FMAs lane k + 1 would do), so
-      // a pair pays one shuffle latency. A step is one reciprocal that
-      // every lane takes alike and selects: no branch on the chain.
-      float piv = 1.f;
+      // k + 1 after step k itself (the same FMAs lane k + 1 does), so a
+      // pair pays one shuffle latency. Every lane takes the same scale
+      // and selects: no branch on the chain but the IEEE operations' own.
+      float own = 1.f;
 #pragma unroll
       for (int k = 0; k < SUB; k += 2) {
         float r0[SUB], r1[SUB];
         const float d0 = __shfl_sync(0xffffffffu, la[k], k);
-        const float a10 = __shfl_sync(0xffffffffu, la[k], k + 1);
 #pragma unroll
         for (int p = 0; p < SUB; ++p) {
           r0[p] = __shfl_sync(0xffffffffu, p > k ? la[p] : lx[p], k);
           r1[p] = __shfl_sync(0xffffffffu, p > k ? la[p] : lx[p], k + 1);
         }
-        const float rd0 = recip(d0);
-        const float l10 = a10 * rd0;
+        const float s0 = inv_sqrt(d0);
+#pragma unroll
+        for (int p = 0; p < SUB; ++p) r0[p] *= s0;
+        // l_{k+1} = A[k + 1, k] s0 = r0[k + 1] (the block is symmetric bit
+        // for bit: only its lower triangle is read, and fmaf commutes)
+        const float l10 = r0[k + 1];
 #pragma unroll
         for (int p = 0; p < SUB; ++p) r1[p] = fmaf(-l10, r0[p], r1[p]);
-        const float d1 = r1[k + 1];
-        const float rd1 = recip(d1);
-        piv = (lane == k) ? d0 : (lane == k + 1) ? d1 : piv;
-        const float lr0 = (lane > k) ? la[k] * rd0 : 0.f;
+        const float s1 = inv_sqrt(r1[k + 1]);
+#pragma unroll
+        for (int p = 0; p < SUB; ++p) r1[p] *= s1;
+        own = (lane == k) ? s0 : (lane == k + 1) ? s1 : own;
+        const float lr0 = (lane > k) ? la[k] * s0 : 0.f;
 #pragma unroll
         for (int p = 0; p < SUB; ++p) {
           if (p > k)
@@ -371,20 +396,20 @@ panel_chol_inv(int kb, const float* __restrict__ a, size_t sa,
           else
             lx[p] = fmaf(-lr0, r0[p], lx[p]);
         }
-        const float lr1 = (lane > k + 1) ? la[k + 1] * rd1 : 0.f;
+        const float lr1 = (lane > k + 1) ? la[k + 1] * s1 : 0.f;
 #pragma unroll
         for (int p = 0; p < SUB; ++p) {
           if (p > k + 1)
             la[p] = fmaf(-lr1, r1[p], la[p]);
           else if (p <= k)
             lx[p] = fmaf(-lr1, r1[p], lx[p]);
-          else  // X[k + 1, k + 1] is still 1
-            lx[p] = fmaf(-lr1, 1.f, lx[p]);
+          else  // X[k + 1, k + 1] = 1 before its scaling: s1 after
+            lx[p] = fmaf(-lr1, s1, lx[p]);
         }
       }
-      const float inv_own = 1.f / sqrtf(piv);
+      // a lane's row of X was used scaled by its own s (r0, r1 above)
 #pragma unroll
-      for (int p = 0; p < SUB; ++p) lx[p] *= inv_own;
+      for (int p = 0; p < SUB; ++p) lx[p] *= own;
       // lane q holds row q of Linv11 in lx (zeros above the diagonal)
       auto dot = [&](const float* v) {
         float acc = 0.f;

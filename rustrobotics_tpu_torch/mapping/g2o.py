@@ -8,8 +8,12 @@ dof offset in file order (SE2: 3, XY: 2, SE3: 6); ``total_dof`` is their
 sum. The gauge prior sits on the first SE2 edge's from-pose (or, for a
 pure 3D graph, the first SE3 edge's).
 
-The parse itself is the JAX package's pure-Python tokenizer, copied; its
-native C++ parser path is not ported yet.
+``load_g2o_with_meta`` parses with the native C++ parser
+(``g2o_native``, the repository's ``native/g2o_parser.cpp``) and takes the
+pure-Python tokenizer, copied from the JAX package, when the native parser
+is unavailable or rejects the file; both give bit-identical arrays, and
+the Python parser owns the error messages. This is host-side parsing:
+the tensors land on ``device`` either way.
 """
 
 from __future__ import annotations
@@ -146,9 +150,33 @@ def batch_from_numpy(fields: dict, total_dof: int, prior2: int = -1,
                             device=device, dtype=dtype)
 
 
+@dataclasses.dataclass
+class G2OMeta:
+    """Host-side parse metadata. ``pp_file_index`` / ``pl_file_index`` /
+    ``qq_file_index`` give, for each typed edge row, its position in the
+    file's mixed-type edge order."""
+
+    pp_file_index: np.ndarray
+    pl_file_index: np.ndarray
+    qq_file_index: np.ndarray
+
+
 def load_g2o(path: str, dtype=torch.float64, device=None) -> PoseGraphData:
     """Parse a g2o text file."""
-    return _build_graph(_parse_python(path), dtype, device)
+    graph, _ = load_g2o_with_meta(path, dtype, device)
+    return graph
+
+
+def load_g2o_with_meta(path: str, dtype=torch.float64, device=None):
+    """Parse with the native C++ parser, or with the Python tokenizer when
+    the native one is unavailable or rejects the file. Returns (graph,
+    G2OMeta)."""
+    from rustrobotics_tpu_torch.mapping import g2o_native
+
+    d = g2o_native.parse_native(path)
+    if d is None:
+        d = _parse_python(path)
+    return _build_graph(d, dtype, device)
 
 
 @dataclasses.dataclass
@@ -168,6 +196,7 @@ def _parse_python(path: str) -> dict:
     pp, pl, qq = [], [], []
     prior2 = -1
     prior3 = -1
+    edge_file_index = 0
 
     with open(path, "r", encoding="utf-8") as fh:
         for line in fh:
@@ -201,13 +230,16 @@ def _parse_python(path: str) -> dict:
                     float(v) for v in vals[2:11]
                 )
                 omega = [[i11, i12, i13], [i12, i22, i23], [i13, i23, i33]]
-                pp.append((f, t, [x, y, th], omega))
+                pp.append((f, t, [x, y, th], omega, edge_file_index))
                 if prior2 < 0:
                     prior2 = f  # gauge prior on the first SE2 edge's from node
+                edge_file_index += 1
             elif tag == "EDGE_SE2_XY":
                 f, t = int(vals[0]), int(vals[1])
                 x, y, i11, i12, i22 = (float(v) for v in vals[2:7])
-                pl.append((f, t, [x, y], [[i11, i12], [i12, i22]]))
+                pl.append((f, t, [x, y], [[i11, i12], [i12, i22]],
+                           edge_file_index))
+                edge_file_index += 1
             elif tag == "EDGE_SE3:QUAT":
                 f, t = int(vals[0]), int(vals[1])
                 x, y, z, qx, qy, qz, qw = (float(v) for v in vals[2:9])
@@ -219,9 +251,11 @@ def _parse_python(path: str) -> dict:
                         omega[i, j] = upper[k]
                         omega[j, i] = upper[k]
                         k += 1
-                qq.append((f, t, [x, y, z, qw, qx, qy, qz], omega))
+                qq.append((f, t, [x, y, z, qw, qx, qy, qz], omega,
+                           edge_file_index))
                 if prior3 < 0:
                     prior3 = f
+                edge_file_index += 1
             else:
                 raise ValueError(f"unsupported g2o record {tag!r} in {path}")
 
@@ -256,13 +290,20 @@ def _parse_python(path: str) -> dict:
         "pose2_offsets": np.asarray(pose2_offsets, dtype=np.int32),
         "lm2_offsets": np.asarray(lm2_offsets, dtype=np.int32),
         "pose3_offsets": np.asarray(pose3_offsets, dtype=np.int32),
+        "pp_file_index": np.asarray([e[4] for e in pp], dtype=np.int64),
+        "pl_file_index": np.asarray([e[4] for e in pl], dtype=np.int64),
+        "qq_file_index": np.asarray([e[4] for e in qq], dtype=np.int64),
         "total_dof": b.next_offset,
         "prior2": b.pose2_ids.get(prior2, -1) if prior2 >= 0 else -1,
         "prior3": b.pose3_ids.get(prior3, -1) if prior3 >= 0 else -1,
     }
 
 
-def _build_graph(d: dict, dtype, device) -> PoseGraphData:
-    """Numpy parse dict -> tensors on ``device``."""
-    return graph_from_numpy(d, d["total_dof"], d["prior2"], d["prior3"],
-                            device=device, dtype=dtype)
+def _build_graph(d: dict, dtype, device):
+    """Numpy parse dict (native or Python) -> (graph on ``device``,
+    G2OMeta)."""
+    graph = graph_from_numpy(d, d["total_dof"], d["prior2"], d["prior3"],
+                             device=device, dtype=dtype)
+    return graph, G2OMeta(pp_file_index=d["pp_file_index"],
+                          pl_file_index=d["pl_file_index"],
+                          qq_file_index=d["qq_file_index"])

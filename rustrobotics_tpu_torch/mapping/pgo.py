@@ -42,7 +42,9 @@ anneals μ from μ0 (``max_edge_chi2``, capped at ``GNC_MU0_CAP``) to 1 at
 Uncertainty: ``marginal_variances`` and ``pose_covariances`` (the banded
 selected inverse; K4 + K1 for f32 values on the card).
 
-Not ported yet: the ``PoseGraph`` wrapper.
+``PoseGraph`` wraps ``optimize`` for a user: a g2o path or a graph in, the
+χ² trace out, the estimates and the iteration count kept, plots per
+iteration on request.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from rustrobotics_tpu_torch.mapping.g2o import (
     FLOAT_FIELDS,
     INDEX_FIELDS,
     PoseGraphData,
+    load_g2o,
 )
 from rustrobotics_tpu_torch.mapping.linearize import (
     quad_form,
@@ -654,6 +657,57 @@ def make_optimize_batch(
 
     run.backend, run.backend_times = backend, times
     return run
+
+
+class PoseGraph:
+    """User-facing wrapper: a graph (a g2o path or a ``PoseGraphData``),
+    the solver that optimizes it and the iterations run so far. ``dtype``
+    casts the float fields; the graph lives on ``device`` (None: the
+    card)."""
+
+    def __init__(self, path_or_data, solver: str = "gauss_newton",
+                 dtype=None, device=None):
+        self.device = resolve_device(device)
+        if isinstance(path_or_data, PoseGraphData):
+            self.data = path_or_data.to(device=self.device)
+            self.name = "graph"
+        else:
+            self.data = load_g2o(str(path_or_data), device=self.device)
+            self.name = str(path_or_data).rsplit("/", 1)[-1].split(".")[0]
+        if dtype is not None:
+            self.data = self.data.to(dtype=dtype)
+        self.solver = solver
+        self.iteration = 0
+
+    def global_error(self) -> float:
+        return float(global_error(self.data))
+
+    def optimize(self, num_iterations=50, log=False, plot=False,
+                 backend="host", out_dir="img", robust=None, robust_delta=1.0,
+                 robust_alpha=-2.0):
+        """Run ``optimize`` from the current estimates and keep its result.
+        Returns the χ² trace (a list). ``plot`` writes
+        ``{out_dir}/{name}-{it}-{solver}.png`` before the first iteration
+        and after each one."""
+        callback = None
+        if plot:
+            from rustrobotics_tpu_torch.utils.plot import plot_pose_graph
+
+            plot_pose_graph(self.data,
+                            f"{out_dir}/{self.name}-0-{self.solver}.png")
+
+            def callback(it, graph, *_):
+                plot_pose_graph(
+                    graph, f"{out_dir}/{self.name}-{it}-{self.solver}.png")
+
+        result = optimize(
+            self.data, num_iterations=num_iterations, solver=self.solver,
+            backend=backend, robust=robust, robust_delta=robust_delta,
+            robust_alpha=robust_alpha, log=log, callback=callback,
+            device=self.device)
+        self.data = result.graph
+        self.iteration += result.iterations
+        return result.errors
 
 
 def linearize_and_solve(graph: PoseGraphData, backend: str = "host",

@@ -42,13 +42,30 @@ Every function takes a fleet's leading batch axis: vals (B, nnz) and b
 (B, n) give block rows (B, nb, kb, 2kb) and x (B, n); the plan is the
 graphs' shared one.
 
-Not ported yet: the triangular-solve ("trsm") substitution mode of the
-chain, and the "strips" scatter mode with its plan.
+Two switches select among the plain versions, as in the JAX package:
+
+- ``BAND_SCATTER_MODE`` (``RUSTROBOTICS_BAND_SCATTER`` at import, default
+  "add"): the plain band assembly of ``_prepare_blocks``. "add" is one
+  scatter-add of the kept triplets; "sorted" sums each unique destination's
+  segment and writes the unique targets once; "strips" merges duplicate
+  contributions into 3-wide node-column strips of band rows, places the
+  strips by column compare and sums them into their rows (when the plan's
+  node-grouped order was adopted, ``strips_ok``; "add" otherwise). All
+  three give the same band. On the card's ``banded-kernel`` path the
+  assembly is K4/K5 whatever the mode: the modes choose among plain
+  versions only.
+- ``SUBSTITUTE_MODE`` of ``solve_band_chol``: "inv" (default) is the chain
+  with explicit inverse factors of K1/K2; "trsm" keeps the classic
+  triangular-solve chain (``_factorize`` and ``band_substitute``, their
+  list forms ``_factorize_unrolled`` and ``_substitute_unrolled`` below
+  ``UNROLL_MAX_NB`` block rows) by ``torch.linalg.solve_triangular``, for
+  verification.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -63,6 +80,9 @@ from rustrobotics_tpu_torch.ops.batched_tri import (
     chol_blocked,
     tril_inv,
 )
+
+# The plain band assembly's scatter: "add", "sorted" or "strips".
+BAND_SCATTER_MODE = os.environ.get("RUSTROBOTICS_BAND_SCATTER", "add")
 
 # Band floats a tile of the assembly's plan: one CTA of K4/K5 owns a tile
 # (32 KB, eight rows at kb = 512). It divides every band, nb kb 2kb with
@@ -94,10 +114,20 @@ class BandCholLayout:
     # (tiles + 1,) starts in uniq_idx of the ASSEMBLE_TILE-float tiles:
     # tile t's destinations are uniq_idx[tile_ptr[t]:tile_ptr[t + 1]]
     tile_ptr: np.ndarray
+    # strip plan ("strips" scatter mode): one strip = (band row, 3
+    # contiguous columns starting at a node block's first permuted
+    # column); duplicate contributions merge in a segment sum over 3*S
+    # slots. Empty when strips_ok is False.
+    strip_src: np.ndarray   # kept-triplet indices sorted by slot id
+    strip_seg: np.ndarray   # nondecreasing slot id (strip*3 + offset)
+    strip_count: int        # S
+    strip_row: np.ndarray   # (S,) destination row in permuted order
+    strip_c0: np.ndarray    # (S,) local column start within the 2kb panel
 
     _INDEX_FIELDS = ("perm", "inv_perm", "sel", "flat_idx", "pad_rows",
                      "sel_sorted", "seg_sorted", "uniq_idx", "seg_ptr",
-                     "tile_ptr")
+                     "tile_ptr", "strip_src", "strip_seg", "strip_row",
+                     "strip_c0")
 
     def to(self, device) -> "BandCholLayout":
         return dataclasses.replace(self, **{
@@ -165,6 +195,28 @@ def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
     tile_ptr = np.searchsorted(
         uniq_idx, np.arange(tiles + 1, dtype=np.int64) * ASSEMBLE_TILE)
 
+    # strip plan: group kept triplets by (row, col-node start)
+    if strips_ok:
+        node_start = np.full(int(db_all.max()) + 1, n, dtype=np.int64)
+        np.minimum.at(node_start, db_all, inv)
+        ns = node_start[db_all[cols[sel]]]   # permuted col start of node
+        off = cs - ns                        # 0..dim-1 within the node
+        assert off.min() >= 0, "node dofs not contiguous"
+        # chunk wide nodes (SE3: 6 dof) into 3-wide sub-strips
+        s_c = ns + 3 * (off // 3)
+        key = rs * np.int64(n) + s_c         # lexicographic (row, c0)
+        uniq_key, strip_of = np.unique(key, return_inverse=True)
+        slot_id = strip_of.astype(np.int64) * 3 + off % 3
+        sorder = np.argsort(slot_id, kind="stable")
+        strip_src = sel[sorder].astype(np.int64)
+        strip_seg = slot_id[sorder].astype(np.int32)
+        strip_row = (uniq_key // n).astype(np.int32)
+        strip_c0 = (uniq_key % n - (strip_row.astype(np.int64) // kb - 1)
+                    * kb).astype(np.int32)
+    else:
+        strip_src = np.zeros(0, np.int64)
+        strip_seg = strip_row = strip_c0 = np.zeros(0, np.int32)
+
     return BandCholLayout(
         n=n, kb=kb, nb=nb, q=q,
         perm=perm.astype(np.int32), inv_perm=inv.astype(np.int32),
@@ -177,6 +229,11 @@ def build_band_chol(layout, max_bandwidth: int = 2048) -> BandCholLayout | None:
         uniq_idx=uniq_idx.astype(np.int64),
         seg_ptr=seg_ptr.astype(np.int64),
         tile_ptr=tile_ptr.astype(np.int64),
+        strip_src=strip_src,
+        strip_seg=strip_seg,
+        strip_count=len(strip_row),
+        strip_row=strip_row,
+        strip_c0=strip_c0,
     )
 
 
@@ -192,18 +249,56 @@ def scatter_add(bl: BandCholLayout, vals):
                            vals[..., _index(bl.sel, vals.device)])
 
 
+def scatter_sorted(bl: BandCholLayout, vals):
+    """``scatter_add`` by the sorted plan: each unique destination's
+    segment summed, then the unique targets written once."""
+    dev, batch = vals.device, vals.shape[:-1]
+    u = vals.new_zeros(batch + (len(bl.uniq_idx),)).index_add_(
+        -1, _index(bl.seg_sorted, dev), vals[..., _index(bl.sel_sorted, dev)])
+    flat = vals.new_zeros(batch + (bl.nb * bl.kb * 2 * bl.kb,))
+    flat[..., _index(bl.uniq_idx, dev)] = u
+    return flat
+
+
+def scatter_strips(bl: BandCholLayout, vals):
+    """``scatter_add`` by the strip plan: duplicate contributions merged
+    into (S, 3) strips, each strip placed at its column offset of a 2kb
+    row by column compare, and the rows summed into the band."""
+    dev, batch = vals.device, vals.shape[:-1]
+    kb, count = bl.kb, bl.strip_count
+    sv = vals.new_zeros(batch + (3 * count,)).index_add_(
+        -1, _index(bl.strip_seg, dev), vals[..., _index(bl.strip_src, dev)])
+    sv = sv.view(batch + (count, 3))
+    col = torch.arange(2 * kb, device=dev)
+    c0 = _index(bl.strip_c0, dev)[:, None]
+    strips = sum(torch.where(col == c0 + k, sv[..., k:k + 1], 0.0)
+                 for k in range(3))
+    flat = vals.new_zeros(batch + (bl.nb * kb, 2 * kb)).index_add_(
+        -2, _index(bl.strip_row, dev), strips)
+    return flat.view(batch + (-1,))
+
+
+def plain_scatter(bl: BandCholLayout):
+    """The plain band assembly ``BAND_SCATTER_MODE`` selects."""
+    if BAND_SCATTER_MODE == "strips" and bl.strips_ok:
+        return scatter_strips
+    if BAND_SCATTER_MODE == "sorted":
+        return scatter_sorted
+    return scatter_add
+
+
 def _prepare_blocks(bl: BandCholLayout, vals, assemble=None):
     """Assemble triplets into scaled block rows. Returns
     (r_blocks (..., nb, kb, 2kb), dinv_p (..., npad)): the Jacobi-scaled
     banded matrix and the scaling vector, in permuted order. Diagonal
     blocks hold their lower triangle only. ``assemble(bl, vals)`` gives the
     unscaled flat block rows: the CUDA kernel, or by default the plain
-    ``scatter_add``."""
+    scatter of ``BAND_SCATTER_MODE``."""
     kb, nb = bl.kb, bl.nb
     npad = nb * kb
     batch = vals.shape[:-1]
 
-    flat = (assemble or scatter_add)(bl, vals)
+    flat = (assemble or plain_scatter(bl))(bl, vals)
     r_blocks = flat.view(batch + (nb, kb, 2 * kb))
     # unit diagonal on padded rows so the last block stays SPD (the padded
     # rows are distinct, so a gather-add-put is exact)
@@ -261,11 +356,89 @@ def solve_banded(bl: BandCholLayout, vals, b, factorize, substitute,
     return unscale(bl, xs, dinv_p)
 
 
+# Below this many block rows, the "trsm" chain runs its list form, as in
+# the JAX package (there the other form is a scan; here both are loops).
+UNROLL_MAX_NB = 64
+
+# Substitution strategy of solve_band_chol: "inv" (default) multiplies by
+# the chain's explicit triangular inverses (the math of K1/K2); "trsm"
+# keeps the classic triangular-solve chain, for verification.
+SUBSTITUTE_MODE = "inv"
+
+
+def _factorize_unrolled(r_blocks):
+    """The triangular-solve chain on block rows (..., nb, kb, 2kb):
+    returns ([ld_j], [lp_j]), the diagonal Cholesky factors and the
+    subdiagonal panels lp_j = P_{j+1} ld_j^-T."""
+    nb, kb = r_blocks.shape[-3], r_blocks.shape[-2]
+    lds, lps = [], []
+    dcur = r_blocks[..., 0, :, kb:]
+    for j in range(nb):
+        ld = _cholesky(dcur)  # mirrors the lower triangle first
+        lds.append(ld)
+        if j + 1 < nb:
+            p = r_blocks[..., j + 1, :, :kb]
+            lp = torch.linalg.solve_triangular(ld, p.mT, upper=False).mT
+            lps.append(lp)
+            dcur = r_blocks[..., j + 1, :, kb:] - lp @ lp.mT
+    return lds, lps
+
+
+def _substitute_unrolled(lds, lps, bp):
+    """Forward + backward substitution over per-block lists: solves
+    L Lᵀ x = bp for bp (..., nb, kb)."""
+    nb = len(lds)
+
+    def trsv(ld, rhs, upper):
+        a = ld.mT if upper else ld
+        return torch.linalg.solve_triangular(a, rhs[..., None],
+                                             upper=upper)[..., 0]
+
+    ys = []
+    for j in range(nb):
+        rhs = bp[..., j, :]
+        if j > 0:
+            rhs = rhs - _mv(lps[j - 1], ys[j - 1])
+        ys.append(trsv(lds[j], rhs, upper=False))
+    xs = [None] * nb
+    for j in range(nb - 1, -1, -1):
+        rhs = ys[j]
+        if j + 1 < nb:
+            rhs = rhs - _mv(lps[j].mT, xs[j + 1])
+        xs[j] = trsv(lds[j], rhs, upper=True)
+    return torch.stack(xs, -2)
+
+
+def _factorize(r_blocks):
+    """``_factorize_unrolled`` stacked: (lds (..., nb, kb, kb), lps (...,
+    nb-1, kb, kb))."""
+    lds, lps = _factorize_unrolled(r_blocks)
+    kb = r_blocks.shape[-2]
+    return (torch.stack(lds, -3),
+            torch.stack(lps, -3) if lps
+            else r_blocks.new_zeros(r_blocks.shape[:-3] + (0, kb, kb)))
+
+
+def band_substitute(lds, lps, bp):
+    """Forward + backward substitution through the stacked factor of
+    ``_factorize``: solves L Lᵀ x = bp for bp (..., nb, kb)."""
+    return _substitute_unrolled(list(lds.unbind(-3)), list(lps.unbind(-3)),
+                                bp)
+
+
 def solve_band_chol(bl: BandCholLayout, vals, b):
     """Jacobi-scaled banded Cholesky solve of the triplet system (vals
     aligned with the SystemLayout that built ``bl``) through the plain
-    chain, in vals' dtype."""
-    return solve_banded(bl, vals, b, factorize_plain, substitute_plain)
+    chain of ``SUBSTITUTE_MODE``, in vals' dtype."""
+    if SUBSTITUTE_MODE == "inv":
+        return solve_banded(bl, vals, b, factorize_plain, substitute_plain)
+    r_blocks, dinv_p = _prepare_blocks(bl, vals)
+    bp = scale_rhs(bl, b, dinv_p)
+    if bl.nb <= UNROLL_MAX_NB:
+        xs = _substitute_unrolled(*_factorize_unrolled(r_blocks), bp)
+    else:
+        xs = band_substitute(*_factorize(r_blocks), bp)
+    return unscale(bl, xs, dinv_p)
 
 
 # ------------------------------------------------------------------

@@ -15,42 +15,24 @@ host solve.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import pathlib
-import subprocess
 
 import numpy as np
 
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG.parent / "native" / "ldl_solver.cpp"
-BUILD_DIR = _PKG / "_build"
+from rustrobotics_tpu_torch._native_build import (
+    BUILD_DIR,
+    NATIVE_DIR,
+    build_shared,
+)
+
+SOURCE = NATIVE_DIR / "ldl_solver.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _LIB: dict = {}
 
 
-def _build() -> pathlib.Path | None:
-    """Compile the source unless this version is built; None when there
-    is no source or no working g++."""
-    if not SOURCE.exists():
-        return None
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libldl-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    # build under a private name, then rename: a concurrent loader sees
-    # either no library or a whole one
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run(["g++", *GXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                       check=True, capture_output=True, timeout=300)
-    except (OSError, subprocess.SubprocessError):
-        return None
-    os.replace(tmp, out)
-    return out
+def _build():
+    return build_shared(SOURCE, "ldl", GXX_FLAGS)
 
 
 def _load():

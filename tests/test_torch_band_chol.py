@@ -252,3 +252,48 @@ def test_wrappers_take_plain_only_on_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         bk.factorize_kernel(ldinv.to("meta"), lp.to("meta"))
     assert bk.LAUNCHES == before
+
+
+def test_strip_plan_identical(sys_):
+    jbl, bl = sys_["jbl"], sys_["bl"]
+    assert bl.strips_ok and bl.strip_count == jbl.strip_count > 0
+    for name in ("strip_src", "strip_seg", "strip_row", "strip_c0"):
+        np.testing.assert_array_equal(getattr(bl, name), getattr(jbl, name),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("mode", ["strips", "sorted"])
+def test_prepare_blocks_scatter_modes_match(sys_, monkeypatch, mode):
+    """_prepare_blocks under each scatter mode against the JAX package's
+    under the same mode (to 1e-12 of the largest entry), and bit-equal to
+    the port's own "add" band."""
+    want_r, want_d = jbc._prepare_blocks(sys_["jbl"], sys_["jvals"])
+    add_r, add_d = tbc._prepare_blocks(sys_["bl"], sys_["vals"])
+    monkeypatch.setattr(jbc, "BAND_SCATTER_MODE", mode)
+    monkeypatch.setattr(tbc, "BAND_SCATTER_MODE", mode)
+    mode_r, _ = jbc._prepare_blocks(sys_["jbl"], sys_["jvals"])
+    got_r, got_d = tbc._prepare_blocks(sys_["bl"], sys_["vals"])
+    assert rel_to_max(got_r.numpy(), mode_r) < 1e-12
+    assert rel_to_max(got_r.numpy(), want_r) < 1e-12
+    assert rel_to_max(got_d.numpy(), want_d) < 1e-12
+    torch.testing.assert_close(got_r, add_r, rtol=0, atol=0)
+    torch.testing.assert_close(got_d, add_d, rtol=0, atol=0)
+    # a fleet's batch axis: each row its graph's band
+    vals2 = torch.stack([sys_["vals"], 2.0 * sys_["vals"]])
+    batch_r, _ = tbc._prepare_blocks(sys_["bl"], vals2)
+    torch.testing.assert_close(batch_r[0], add_r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("unroll_max_nb", [64, 2])
+def test_solve_band_chol_trsm_matches(sys_, monkeypatch, unroll_max_nb):
+    """SUBSTITUTE_MODE = "trsm" (the triangular-solve chain; its stacked
+    form when nb > UNROLL_MAX_NB) against the JAX package's, f64."""
+    for module in (jbc, tbc):
+        monkeypatch.setattr(module, "SUBSTITUTE_MODE", "trsm")
+        monkeypatch.setattr(module, "UNROLL_MAX_NB", unroll_max_nb)
+    want = jbc.solve_band_chol(sys_["jbl"], sys_["jvals"], sys_["jb"])
+    got = tbc.solve_band_chol(sys_["bl"], sys_["vals"], sys_["b"])
+    assert rel_to_max(got.numpy(), want) < 1e-9
+    monkeypatch.setattr(tbc, "SUBSTITUTE_MODE", "inv")
+    inv = tbc.solve_band_chol(sys_["bl"], sys_["vals"], sys_["b"])
+    assert rel_to_max(got.numpy(), inv.numpy()) < 1e-9

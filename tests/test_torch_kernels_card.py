@@ -312,16 +312,21 @@ def test_fleet_runs_the_kernels(cuda_device, monkeypatch):
                                    atol=0)
 
 
-def _sphere(device, rings=30):
-    """chip_smoke.sphere_graph at 30 rings of 50 poses (n = 9000): its
-    band plan is kb = 384, nb = 24, the block size of sphere-2500."""
-    import numpy as np
-
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke",
         pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def _sphere(device, rings=30):
+    """chip_smoke.sphere_graph at 30 rings of 50 poses (n = 9000): its
+    band plan is kb = 384, nb = 24, the block size of sphere-2500."""
+    import numpy as np
+
+    cs = _chip_smoke()
     g = cs.port_graph(cs.sphere_graph(rings=rings), device)
     rng = np.random.default_rng(0)
     copies = [g] + [g.replace(poses3=torch.as_tensor(
@@ -493,3 +498,28 @@ def test_marginals_through_kernels_match_plain(cuda_device):
     for got, want in ((var, var_p), (blocks, blocks_p)):
         err = float((got - want).abs().max() / want.abs().max())
         assert err <= 3e-2, err
+
+
+@pytest.mark.cuda
+def test_k1_keeps_pivots_on_frontend_band(cuda_device):
+    """The front end's graph of chip_smoke (n = 5248, kb = 256, nb = 21)
+    after LM 30 on banded-direct, K4's band at λ = FE_BREAK_LAM: near
+    singular in f32, and a K1 whose sub-panel steps scaled X and the
+    update with two roundings of the pivot lost pivots on it from block
+    row 5 or 6 on. K1 keeps every pivot, as the plain chain does, and
+    stays within FE_K1_TOL of it (max|ldinv_kernel L_plain - I|)."""
+    from rustrobotics_tpu_torch.mapping import (
+        build_pose_graph_from_slam_course,
+    )
+
+    cs = _chip_smoke()
+    g = build_pose_graph_from_slam_course(cs.frontend_dataset(),
+                                          device=cuda_device)
+    bl = build_band_chol(build_layout(g))
+    assert (bl.kb, bl.nb) == (256, 21)
+    out, _, _ = make_optimize(g, num_iterations=cs.FE_ITERS, solver="lm",
+                              backend="banded-direct", tolerance=0.0,
+                              device=cuda_device)(g)
+    k1_bad, plain_bad, _, resid = cs.frontend_k1_check(out, bl, cuda_device)
+    assert plain_bad == [] and k1_bad == []
+    assert resid <= cs.FE_K1_TOL, resid
