@@ -113,6 +113,37 @@ Phases; any failure ends the script with a non-zero exit code:
       f32: whether the f64 chain breaks down on it is printed), K1 keeps
       every pivot, as the plain chain does, within FE_K1_TOL of it; landmark
       errors and LM it/s printed;
+   the filters, on a UTIAS MRCLE-shaped dataset from write_utias (15
+   landmarks and 5 robots keyed by barcode, a 15 m x 8 m arena,
+   groundtruth at 100 Hz, odometry at ~67 Hz, measurement groups of 1-6
+   sightings with other robots' barcodes among them, epoch stamps near
+   1.25e9 s, more than 10,000 merged events); they run none of K1-K5,
+   whose counters are printed around them. Their CPU f64 references
+   (cpu_references) run in a worker process from the script's start:
+   n. filters-sim: run_simulation ekf, ukf and pf (SIM_TIME s at dt 0.1,
+      SIM_PARTICLES particles): f64 on the card against f64 on the CPU on
+      the same numpy draws, and the entry point in f32 on the card held to
+      the JAX tests' RMSE bounds; steps/s;
+   o. landmarks: run_utias_localization, LM_EVENTS events: EKF f64 (event
+      for event against the CPU f64 run) and f32, both ATEs below
+      LM_ATE_MAX, UKF f64 and PF f64 (LM_PARTICLES); events/s, device
+      launches per event and the idle share of a traced replay, and no
+      host read in the EKF and PF replays (CUDA sync debug mode);
+   p. fleet: run_utias_localization_fleet, bank FLEET_BANK, LM_EVENTS
+      events, f32: every row finite, FLEET_ROWS rows against the unbanked
+      EKF-KC (f64, CPU) from their initial states, and those rows through
+      the banked path in f64 on the card; events/s, filter-updates/s,
+      launches per event, idle share, no host read;
+   q. banked: simple_problem_banked (B = BANKED_EKF_B) and
+      simple_problem_banked_ukf (B = BANKED_UKF_B), BANKED_STEPS chained
+      steps in f32 at the JAX package's benchmark settings, columns
+      against the unbanked filters (f64, CPU); Mupdates/s; the banked
+      UKF-KC fleet (UKF_FLEET_B, UKF_FLEET_EVENTS events) against UKF-KC
+      rows;
+   r. filters-extra: the parallel Kalman filter and RTS smoother against
+      the sequential ones at T = SCAN_T (f64), the EIF-KC on EIF_EVENTS
+      events against the CPU run and the EKF-KC, the histogram filter on
+      a HIST_GRID grid over HIST_EVENTS events against the CPU run;
 5. times from CUDA events: each kernel, its plain version and a library
    yardstick, each beside its bound, as device time a call with the calls
    queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
@@ -128,7 +159,8 @@ Phases; any failure ends the script with a non-zero exit code:
 7. one JSON line describing the kernels (K1, K2, K4 and K5 with their
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
    under *_b8 keys; K1, K2 and K4 with the launches of phases j, k and m
-   under bootstrap_launches, posegraph_launches and frontend_launches),
+   under bootstrap_launches, posegraph_launches and frontend_launches,
+   and every kernel with filters_launches, 0: the filter phases run none),
    then the contract line {"ok": true, "device": {...}}
    last.
 """
@@ -254,6 +286,14 @@ MARGINAL_TOL = {"sphere-2500": {"f64": 0.5, "plain": 0.5}}
 # landmark is sighted from the poses within SLAM_SIGHT_RADIUS metres; noise
 # σ on each odometry component and on range and bearing.
 SLAM_SIGHT_RADIUS, SLAM_ODOM_NOISE, SLAM_MEAS_NOISE = 5.0, 0.01, 0.05
+# write_utias: UTIAS MRCLE's shape. Robots 1-5 and landmarks 6-20 carry
+# MRCLE's barcode numbers; a 15 m x 8 m arena; epoch stamps near 1.25e9 s.
+UTIAS_ROBOT_BARCODES = (5, 14, 41, 32, 23)
+UTIAS_LANDMARK_BARCODES = (72, 27, 54, 70, 36, 18, 25, 9, 81, 16, 90, 61,
+                           45, 7, 63)
+UTIAS_ARENA, UTIAS_MARGIN, UTIAS_T0 = (15.0, 8.0), 1.0, 1248272262.0
+UTIAS_STEP, UTIAS_DURATION = 1e-3, 160.0  # path integration step, seconds
+UTIAS_SIGHT, UTIAS_ODOM_NOISE, UTIAS_MEAS_NOISE = 6.0, 0.01, 0.03
 BACKEND_RUNS = ("banded-cr", "banded-mixed high", "banded-mixed bf16",
                 "schur", "native")
 
@@ -301,6 +341,44 @@ FE_FINAL_RTOL = 1e-3
 # an earlier K1 lost pivots (LM step 10: λ = 0.01 / 2^9): max|ldinv_kernel
 # L_plain - I| over the block rows read 2.3e-3 to 6.5e-3 on the H100.
 FE_BREAK_LAM, FE_K1_TOL = 0.01 / 2 ** 9, 5e-2
+# The filters. filters-sim: run_simulation's episode (SIM_TIME s at dt
+# 0.1), the PF with SIM_PARTICLES particles, numpy draws from SIM_SEED;
+# the f32 runs held to tests/test_filters.py's RMSE bounds (the EKF also
+# below dead reckoning's). landmarks: write_utias(seed 0), LM_EVENTS
+# merged events, ATE below tests/test_data.py's 0.3 m. fleet: bank
+# FLEET_BANK (the entry point's default), FLEET_ROWS rows held to the
+# unbanked EKF-KC from their initial states. banked: the JAX package's
+# benchmark settings (benchmarks.py: B = 65536 EKF, B = 32768 UKF, 100
+# chained steps); the UKF-KC fleet of UKF_FLEET_B on UKF_FLEET_EVENTS.
+# filters-extra: the Kalman scan at T = SCAN_T, the EIF-KC on EIF_EVENTS
+# events, the histogram filter on a HIST_GRID grid over HIST_EVENTS events.
+SIM_TIME, SIM_PARTICLES, SIM_SEED = 50.0, 300, 0
+SIM_RMSE_MAX = {"ekf": 0.5, "ukf": 0.5, "pf": 0.7}
+LM_EVENTS, LM_PARTICLES, LM_ATE_MAX = 10000, 300, 0.3
+FLEET_BANK, FLEET_ROWS, FLEET_SPREAD = 1024, 8, 0.1
+BANKED_EKF_B, BANKED_UKF_B, BANKED_STEPS = 65536, 32768, 100
+UKF_FLEET_B, UKF_FLEET_EVENTS = 1024, 1000
+SCAN_T, EIF_EVENTS, HIST_EVENTS, HIST_GRID = 4096, 2000, 100, (64, 64, 36)
+FLEET_F64_EVENTS = 2000  # the fleet's rows in f64 on the card
+SCAN_SYSTEM_SEED = 3  # numpy seed of the Kalman scan's observations
+TRACE_EVENTS = 100  # events of a replay under torch.profiler
+# Limits (max |difference|, headings wrapped), about 10x the first card
+# readings (NVIDIA H100 80GB HBM3, 700.00 W), in brackets. The f32 fleet
+# rows drift from f64 by the single filter's own f32 drift (centimetres:
+# phase landmarks prints the EKF-KC's f32 run against its f64 run).
+FILTER_TOL = {
+    "sim_f64": 2e-11,       # card f64 against CPU f64, same draws [1.5e-12]
+    "lm_f64": 1e-7,         # EKF-KC, card f64 against CPU f64 [8.0e-9]
+    "fleet_rows": 2.0,      # fleet f32 rows against the f64 EKF-KC [0.18]
+    "fleet_f64": 4e-8,      # the same rows in f64 on the card [3.4e-9]
+    "banked_ekf": 1.5e-5,   # f32 columns, f64 unbanked EKF [1.2e-6]
+    "banked_ukf": 1.5e-5,   # the same, UKF at alpha 1 [1.1e-6]
+    "ukf_fleet_f64": 5e-8,  # UKF-KC fleet rows in f64 on the card [4.4e-9]
+    "scan": 1e-14,          # parallel (card) against sequential (CPU) [1.1e-15]
+    "eif_f64": 5e-9,        # EIF-KC card f64 against CPU f64 [5.3e-10]
+    "eif_ekf": 1e-4,        # EIF-KC against EKF-KC, both f64 [8.6e-6]
+    "hist": 1e-15,          # histogram belief, card against CPU [6.2e-17]
+}
 
 
 def fail(msg):
@@ -632,6 +710,110 @@ def write_slam_course(directory, path, landmarks, seed=0,
     (directory / "world.dat").write_text("".join(
         f"{k + 1} {float(x)!r} {float(y)!r}\n"
         for k, (x, y) in enumerate(landmarks)))
+
+
+def _utias_path(rng, duration, step=UTIAS_STEP):
+    """A unicycle path through the UTIAS arena at 1 kHz: speed
+    0.2 ± 0.08 m/s, turn rate steering toward random waypoints at least
+    UTIAS_MARGIN inside the walls, |ω| ≤ 0.6 rad/s. Returns (v, ω, poses)
+    with poses (n + 1, 3) after each step."""
+    half = np.array(UTIAS_ARENA) / 2 - UTIAS_MARGIN
+    n = int(round(duration / step))
+    v = 0.2 + 0.08 * np.sin(2 * np.pi * np.arange(n) * step / 23.0)
+    w = np.empty(n)
+    poses = np.empty((n + 1, 3))
+    x, y, th, rate = -half[0] + 0.5, 0.0, 0.0, 0.0
+    gx, gy = rng.uniform(-half, half)
+    poses[0] = x, y, th
+    for k, vk in enumerate(v.tolist()):
+        if math.hypot(gx - x, gy - y) < 0.5:
+            gx, gy = rng.uniform(-half, half)
+        err = (math.atan2(gy - y, gx - x) - th + math.pi) % (2 * math.pi) \
+            - math.pi
+        want = min(max(1.5 * err, -0.6), 0.6)
+        rate += (want - rate) * step / 0.5  # 0.5 s lag on the turn rate
+        w[k] = rate
+        x += step * vk * math.cos(th)
+        y += step * vk * math.sin(th)
+        th = (th + step * rate + math.pi) % (2 * math.pi) - math.pi
+        poses[k + 1] = x, y, th
+    return v, w, poses
+
+
+def write_utias(directory, seed=0, duration=UTIAS_DURATION):
+    """A UTIAS MRCLE-shaped dataset: the five CSVs load_utias reads
+    (Barcodes, Landmark_Groundtruth, Groundtruth, Odometry, Measurement),
+    one header row each. 5 robots (subjects 1-5) and 15 landmarks
+    (subjects 6-20) keyed by MRCLE's barcode numbers; the landmarks on a
+    jittered 5 x 3 grid in a UTIAS_ARENA (15 m x 8 m) arena; robot 1
+    drives _utias_path for ``duration`` s. Groundtruth at 100 Hz,
+    odometry (v, ω) at ~67 Hz with N(0, UTIAS_ODOM_NOISE²) on each,
+    measurement groups at ~4.5 Hz of 1-6 sightings: landmarks within
+    UTIAS_SIGHT of range and ±60° of bearing (N(0, UTIAS_MEAS_NOISE²) on
+    range and bearing) and, at one group in three, another robot's
+    barcode, which the landmark table lacks. Stamps are epoch seconds
+    from UTIAS_T0 at 1 ms resolution; odometry and measurements start
+    0.5 s before the groundtruth (the loader clips them). numpy
+    default_rng(seed). Over UTIAS_DURATION the merged stream holds more
+    than 10,000 events."""
+    import pathlib
+
+    rng = np.random.default_rng(seed)
+    directory = pathlib.Path(directory)
+    barcodes = UTIAS_ROBOT_BARCODES + UTIAS_LANDMARK_BARCODES
+    gx, gy = np.meshgrid(np.linspace(-6.0, 6.0, 5), np.linspace(-3.0, 3.0, 3))
+    lms = np.stack([gx.ravel(), gy.ravel()], -1) + rng.normal(0, 0.3, (15, 2))
+    v, w, poses = _utias_path(rng, duration)
+    step = UTIAS_STEP
+
+    def at(times):
+        """Index of the 1 kHz step at each time (s from the start)."""
+        return np.clip(np.round(times / step).astype(int), 0, len(v) - 1)
+
+    def csv(name, header, rows, fmt):
+        body = "\n".join(",".join(f % x for f, x in zip(fmt, row))
+                         for row in rows)
+        (directory / name).write_text(header + "\n" + body + "\n")
+
+    csv("Barcodes.csv", "# Subject #,Barcode #",
+        [(k + 1, b) for k, b in enumerate(barcodes)], ("%d", "%d"))
+    csv("Landmark_Groundtruth.csv",
+        "# Subject #,x [m],y [m],x std-dev [m],y std-dev [m]",
+        [(k + 6, x, y, 0.001, 0.001) for k, (x, y) in enumerate(lms)],
+        ("%d", "%.6f", "%.6f", "%.6f", "%.6f"))
+    t_gt = np.arange(0.0, duration, 0.01)
+    gt = poses[at(t_gt)]
+    csv("Groundtruth.csv", "# Time [s],x [m],y [m],orientation [rad]",
+        [(UTIAS_T0 + t, *p) for t, p in zip(t_gt, gt)],
+        ("%.3f", "%.6f", "%.6f", "%.6f"))
+    t_od = np.cumsum(rng.uniform(0.014, 0.016, int(duration * 70))) - 0.5
+    t_od = np.round(t_od[t_od < duration - 0.1], 3)
+    k = at(np.maximum(t_od, 0.0))
+    od = np.stack([v[k], w[k]], -1) + rng.normal(0, UTIAS_ODOM_NOISE,
+                                                 (len(k), 2))
+    csv("Odometry.csv", "# Time [s],Forward Velocity [m/s],Angular "
+        "Velocity[rad/s]", [(UTIAS_T0 + t, *u) for t, u in zip(t_od, od)],
+        ("%.3f", "%.6f", "%.6f"))
+    rows = []
+    t_me = np.cumsum(rng.uniform(0.15, 0.30, int(duration * 7))) - 0.5
+    for t in np.round(t_me[t_me < duration - 0.1], 3):
+        p = poses[at(np.array([max(t, 0.0)]))[0]]
+        d = lms - p[:2]
+        rng_ = np.hypot(d[:, 0], d[:, 1])
+        bear = _wrap(np.arctan2(d[:, 1], d[:, 0]) - p[2])
+        seen = np.flatnonzero((rng_ < UTIAS_SIGHT)
+                              & (np.abs(bear) < np.pi / 3))[:5]
+        group = [(UTIAS_LANDMARK_BARCODES[j], rng_[j], bear[j])
+                 for j in rng.permutation(seen)]
+        if rng.random() < 1 / 3 or not group:
+            group.append((int(rng.choice(UTIAS_ROBOT_BARCODES[1:])),
+                          rng.uniform(0.5, 6.0), rng.uniform(-1.0, 1.0)))
+        for b, r, a in group:
+            z = np.array([r, a]) + rng.normal(0, UTIAS_MEAS_NOISE, 2)
+            rows.append((UTIAS_T0 + t, b, z[0], _wrap(z[1])))
+    csv("Measurement.csv", "# Time [s],Subject #,range [m],bearing [rad]",
+        rows, ("%.3f", "%d", "%.6f", "%.6f"))
+    return directory
 
 
 def circle_data(steps, n_circle=12, seed=0):
@@ -2615,6 +2797,685 @@ def frontend_k1_check(graph, bl, device):
     return k1_bad, plain_bad, bad(ld_64), resid
 
 
+# ------------------------------------------------------------- filters
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(fn, device):
+    """(fn(), wall seconds) with the card synchronized at both ends."""
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _maxdiff(a, b, heading=None):
+    """max |a - b| over two tensors or arrays; with ``heading``, that
+    component of the last axis is an angle, compared wrapped."""
+    import torch
+
+    d = torch.as_tensor(a).double().cpu() - torch.as_tensor(b).double().cpu()
+    if heading is not None:
+        d[..., heading] = torch.remainder(d[..., heading] + math.pi,
+                                          2 * math.pi) - math.pi
+    return float(d.abs().max())
+
+
+def _on(device):
+    """The device argument an entry point gets: None (its default, the
+    card) on the card, the device itself elsewhere."""
+    import torch
+
+    return None if torch.device(device).type == "cuda" else device
+
+
+def launch_trace(run, device):
+    """(device launches, idle share) of one run() under torch.profiler;
+    (None, None) when the profiler recorded no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(device)
+    with profile(activities=acts) as prof:
+        run()
+        _sync(device)
+    events = prof.events()
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None, None
+    return len(dev), idle_share(events)
+
+
+def no_host_read(label, run, device):
+    """Whether run() makes no synchronizing CUDA call (CUDA's sync debug
+    mode raises on any); True off the card."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return True
+    _sync(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+        return True
+    except RuntimeError as err:
+        print(f"[{label}] a step synchronized with the host: {err}",
+              flush=True)
+        return False
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _fmt(x):
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def utias_dataset():
+    """write_utias(seed 0), loaded by the port."""
+    import tempfile
+
+    from rustrobotics_tpu_torch.data import load_utias
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_utias(tmp, seed=0)
+        return load_utias(tmp)
+
+
+def sim_run(algo, device):
+    """_run_simulation(algo) in f64 on numpy draws from SIM_SEED."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import simulation as sim
+
+    steps = int(SIM_TIME / 0.1)
+    rng = np.random.default_rng(SIM_SEED)
+    draws = {"gps": rng.standard_normal((steps, 2)),
+             "input": rng.standard_normal((steps, 2))}
+    if algo == "pf":
+        draws["init"] = rng.standard_normal((SIM_PARTICLES, 4))
+        draws["noise"] = rng.standard_normal((steps, SIM_PARTICLES, 4))
+        draws["resample"] = rng.random((steps, SIM_PARTICLES))
+    draws = {k: torch.tensor(v, device=device) for k, v in draws.items()}
+    return sim._run_simulation(draws, algo, SIM_TIME, 0.1, SIM_PARTICLES,
+                               torch.float64, device)
+
+
+def fleet_noise(bank, seed):
+    """(3, bank) N(0, 1) draws in f32 on the CPU, numpy default_rng(seed)."""
+    import torch
+
+    return torch.tensor(np.random.default_rng(seed).standard_normal(
+        (3, bank)), dtype=torch.float32)
+
+
+def fleet_x0(ds, noise):
+    """The fleet's initial states as the fleet entry point forms them:
+    groundtruth's first pose + FLEET_SPREAD * noise, f32 on the CPU."""
+    import torch
+
+    return (torch.tensor(ds.groundtruth[0, 1:4], dtype=torch.float32)[:, None]
+            + FLEET_SPREAD * noise)
+
+
+def _fleet_rows(bank):
+    return np.linspace(0, bank - 1, FLEET_ROWS).astype(int)
+
+
+def unbanked_rows(ds, algo, x0_rows, var, events, device="cpu"):
+    """The unbanked EKF-KC / UKF-KC replay from x0_rows (R, 3) at once (a
+    leading batch axis), f64: (T, R, 3)."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+    from rustrobotics_tpu_torch.utils.state import GaussianState
+
+    filt = lr.build_filter(ds, algo, torch.float64, device)
+    ev = ds.events(max_events=events, device=device)
+    cov = torch.eye(3, dtype=torch.float64, device=device) * var
+    state = GaussianState(x=x0_rows.to(device),
+                          cov=cov.expand(len(x0_rows), 3, 3))
+    return lr._replay_kalman(filt, state, ev, lr._first_dt(ev)).x
+
+
+def scan_run(name, device):
+    """kalman_scan.<name> on the 2-state system of the JAX package's tests
+    with SCAN_T observations, f64."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import kalman_scan as ks
+
+    system = (np.array([[1.0, 0.1], [0.0, 1.0]]),
+              np.array([[0.01, 0.0], [0.0, 0.02]]), np.array([[1.0, 0.0]]),
+              np.array([[0.5]]), np.array([0.0, 0.5]), np.eye(2),
+              np.random.default_rng(SCAN_SYSTEM_SEED).normal(
+                  size=(SCAN_T, 1)))
+    return getattr(ks, name)(*(torch.tensor(a, device=device)
+                               for a in system))
+
+
+def eif_run(ds, device):
+    """The EIF-KC (the EKF-KC's noise settings) over EIF_EVENTS events from
+    groundtruth's first pose, cov 1e-10 I, f64: the estimates (T, 3)."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+    from rustrobotics_tpu_torch.localization.eif import (
+        ExtendedInformationFilterKnownCorrespondences,
+        InformationState,
+    )
+    from rustrobotics_tpu_torch.utils.state import GaussianState
+
+    ekf = lr.build_filter(ds, "ekf", torch.float64, device)
+    eif = ExtendedInformationFilterKnownCorrespondences(
+        q=ekf.q, landmarks=ekf.landmarks, motion_model=ekf.motion_model,
+        measurement_model=ekf.measurement_model)
+    ev = ds.events(max_events=EIF_EVENTS, device=device)
+    dt = lr._first_dt(ev)
+    st = InformationState.from_moments(GaussianState(
+        x=torch.tensor(ds.groundtruth[0, 1:4], device=device),
+        cov=torch.eye(3, dtype=torch.float64, device=device) * 1e-10))
+    xs = []
+    for k in range(ev.num_events):
+        st = eif.step(st, ev.control[k], ev.has_control[k], ev.meas_ids[k],
+                      ev.meas_z[k], ev.meas_mask[k], dt[k])
+        xs.append(st.x)
+    return torch.stack(xs)
+
+
+def hist_run(ds, device):
+    """The histogram filter on a HIST_GRID grid over the arena, from
+    groundtruth's first pose, over HIST_EVENTS events, f64: (the final
+    belief, the last event's time)."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+    from rustrobotics_tpu_torch.localization.histogram import HistogramFilter
+
+    table = lr._landmark_table(ds, torch.float64, device)
+    hf = HistogramFilter.create(table.positions[:, :2], np.diag([0.1, 0.2]),
+                                motion_sigma=(0.05, 0.05, 0.05))
+    ev = ds.events(max_events=HIST_EVENTS, device=device)
+    rows, known = table.lookup_np(ev.meas_ids_np)
+    lm_idx = torch.tensor(rows, device=device)
+    mask = torch.tensor(known & ev.meas_mask_np, device=device)
+    dt = lr._first_dt(ev)
+    w, h = UTIAS_ARENA
+    g = hf.init_at(HIST_GRID, -w / 2, -h / 2, w / HIST_GRID[0],
+                   h / HIST_GRID[1], ds.groundtruth[0, 1:4])
+    for k in range(ev.num_events):
+        g = hf.step(g, ev.control[k], ev.has_control[k], lm_idx[k],
+                    ev.meas_z[k], mask[k], dt[k])
+    return g, float(ev.times[-1])
+
+
+def cpu_references():
+    """Every CPU f64 run the filter phases compare the card with, as numpy
+    arrays. chip_smoke runs this in a worker process from its start, so the
+    CPU runs overlap the card's phases."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+
+    torch.set_num_threads(2)
+    ds = utias_dataset()
+    refs = {}
+    for algo in ("ekf", "ukf", "pf"):
+        hist = sim_run(algo, "cpu")
+        refs[f"sim {algo}"] = {k: hist[k].numpy() for k in ("x_est",
+                                                             "cov_est")}
+    _, st = lr.run_utias_localization(ds, "ekf", max_events=LM_EVENTS,
+                                      device="cpu")
+    refs["lm ekf"] = {"x": st.x.numpy(), "cov": st.cov.numpy()}
+    x0 = fleet_x0(ds, fleet_noise(FLEET_BANK, 0))[:, _fleet_rows(FLEET_BANK)]
+    refs["fleet rows"] = unbanked_rows(ds, "ekf", x0.T.double(), 1e-10,
+                                       LM_EVENTS).numpy()
+    x0 = fleet_x0(ds, fleet_noise(UKF_FLEET_B, 2))[:, _fleet_rows(
+        UKF_FLEET_B)]
+    refs["ukf rows"] = unbanked_rows(ds, "ukf", x0.T.double(), 1e-6,
+                                     UKF_FLEET_EVENTS).numpy()
+    for name in ("sequential_linear_kalman_filter",
+                 "sequential_rts_smoother"):
+        st = scan_run(name, "cpu")
+        refs[name] = {"x": st.x.numpy(), "cov": st.cov.numpy()}
+    refs["eif"] = eif_run(ds, "cpu").numpy()
+    refs["eif ekf"] = unbanked_rows(ds, "ekf", torch.tensor(
+        ds.groundtruth[0:1, 1:4]), 1e-10, EIF_EVENTS)[:, 0].numpy()
+    refs["hist"] = hist_run(ds, "cpu")[0].belief.numpy()
+    return refs
+
+
+def _rmse(a, b):
+    return float(((a[:, :2].double() - b[:, :2].double()) ** 2).sum(-1)
+                 .mean().sqrt())
+
+
+def filters_sim_phase(device, refs):
+    """Phase filters-sim: run_simulation ekf, ukf and pf. f64 on the card
+    against f64 on the CPU on the same numpy draws (_run_simulation), and
+    the entry point in f32 on the card (device not given) held to the JAX
+    tests' RMSE bounds; steps/s."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import simulation as sim
+
+    steps = int(SIM_TIME / 0.1)
+    rates = {}
+    for algo in ("ekf", "ukf", "pf"):
+        card64 = sim_run(algo, device)
+
+        def entry(algo=algo):
+            gen = torch.Generator(device).manual_seed(SIM_SEED)
+            return sim.run_simulation(gen, algo, SIM_TIME, 0.1,
+                                      SIM_PARTICLES, torch.float32,
+                                      device=_on(device))
+
+        entry()  # warm-up
+        hist, wall = _timed(entry, device)
+        ref = refs.get()[f"sim {algo}"]
+        diff = max(_maxdiff(card64[k], ref[k]) for k in ref)
+        err = _rmse(hist["x_est"], hist["x_true"])
+        dr = _rmse(hist["x_dr"], hist["x_true"])
+        rates[algo] = steps / wall
+        print(f"[filters-sim] {algo}: {steps / wall:.4f} steps/s (f32 on "
+              f"the card, an episode of {steps} steps in {wall * 1e3:.4f} "
+              f"ms{', ' + str(SIM_PARTICLES) + ' particles' if algo == 'pf' else ''}); "
+              f"RMSE {err:.6g} against dead reckoning's {dr:.6g}; card f64 "
+              f"against CPU f64 on the same draws: max |diff| {diff:.6g}",
+              flush=True)
+        require(all(v.device.type == torch.device(device).type
+                    and bool(torch.isfinite(v).all()) for v in hist.values()),
+                f"{algo} history finite, on the card")
+        require(diff <= FILTER_TOL["sim_f64"],
+                f"{algo} card f64 within {FILTER_TOL['sim_f64']} of CPU f64 "
+                f"({diff:.3g})")
+        require(err < SIM_RMSE_MAX[algo],
+                f"{algo} f32 RMSE {err:.4g} < {SIM_RMSE_MAX[algo]}")
+        if algo == "ekf":
+            require(err < dr, f"ekf RMSE {err:.4g} < dead reckoning's "
+                              f"{dr:.4g}")
+    return rates
+
+
+def landmarks_phase(device, ds, refs):
+    """Phase landmarks: run_utias_localization on write_utias's data,
+    LM_EVENTS events: EKF f64 (held event for event to the CPU f64 run)
+    and f32, UKF f64, PF f64 with LM_PARTICLES; events/s, device launches
+    per event and the idle share of a traced replay of TRACE_EVENTS
+    events; no host read in a replay."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+    from rustrobotics_tpu_torch.utils.state import GaussianState
+
+    def entry(algo, dtype=torch.float64, events=LM_EVENTS, **kw):
+        return lr.run_utias_localization(ds, algo, max_events=events,
+                                         num_particles=LM_PARTICLES,
+                                         dtype=dtype, device=_on(device),
+                                         **kw)
+
+    for algo in ("ekf", "ukf", "pf"):
+        entry(algo, events=TRACE_EVENTS)  # warm-up
+    runs = {}
+    for algo, dtype in (("ekf", torch.float64), ("ekf", torch.float32),
+                        ("ukf", torch.float64), ("pf", torch.float64)):
+        kw = {}
+        if algo == "pf":
+            kw["generator"] = torch.Generator(device).manual_seed(0)
+        (times, st), wall = _timed(lambda: entry(algo, dtype, **kw), device)
+        ate = lr.ate_vs_groundtruth(ds, times, st)
+        runs[(algo, dtype)] = (st, ate, wall)
+        print(f"[landmarks] {algo} {str(dtype)[6:]}: {LM_EVENTS / wall:.4f} "
+              f"events/s ({wall:.4f} s for {LM_EVENTS} events"
+              f"{', ' + str(LM_PARTICLES) + ' particles' if algo == 'pf' else ''}"
+              f"); ATE {ate:.6g} m", flush=True)
+        require(st.x.device.type == torch.device(device).type
+                and bool(torch.isfinite(st.x).all()),
+                f"{algo} {dtype} estimates finite, on the card")
+
+    filt = lr.build_filter(ds, "ekf", torch.float32, device)
+    ev = ds.events(max_events=TRACE_EVENTS, dtype=torch.float32,
+                   device=device)
+    dt = lr._first_dt(ev)
+    x0 = torch.tensor(ds.groundtruth[0, 1:4], dtype=torch.float32,
+                      device=device)
+    state = GaussianState(x=x0, cov=torch.eye(3, dtype=torch.float32,
+                                              device=device) * 1e-10)
+
+    def replay():
+        return lr._replay_kalman(filt, state, ev, dt)
+
+    launches, idle = launch_trace(replay, device)
+    pf = lr.build_filter(ds, "pf", torch.float32, device)
+    draws = lr._pf_draws(torch.Generator(device).manual_seed(0),
+                         TRACE_EVENTS, LM_PARTICLES, torch.float32, device)
+    p0 = x0 + draws["init"] * 0.2
+
+    def replay_pf():
+        return lr._replay_pf(pf, p0, ev, dt, draws["motion"],
+                             draws["resample"])
+
+    pf_launches, pf_idle = launch_trace(replay_pf, device)
+    no_sync = (no_host_read("landmarks", replay, device)
+               and no_host_read("landmarks", replay_pf, device))
+    per = (None if launches is None else launches / TRACE_EVENTS)
+    pf_per = (None if pf_launches is None else pf_launches / TRACE_EVENTS)
+    print(f"[landmarks] EKF f32 replay of {TRACE_EVENTS} events under "
+          f"torch.profiler: device launches per event {_fmt(per)}, device "
+          f"idle share {_fmt(idle)}; PF ({LM_PARTICLES} particles): "
+          f"launches per event {_fmt(pf_per)}, idle share {_fmt(pf_idle)}",
+          flush=True)
+    st64 = runs[("ekf", torch.float64)][0]
+    drift = _maxdiff(runs[("ekf", torch.float32)][0].x, st64.x, heading=2)
+    print(f"[landmarks] EKF f32 against EKF f64 on the card: max |diff| "
+          f"{drift:.6g} (heading wrapped)", flush=True)
+    ref = refs.get()["lm ekf"]
+    diff = max(_maxdiff(st64.x, ref["x"], heading=2),
+               _maxdiff(st64.cov, ref["cov"]))
+    print(f"[landmarks] EKF f64, card against CPU, event for event: max "
+          f"|diff| {diff:.6g}", flush=True)
+    require(diff <= FILTER_TOL["lm_f64"],
+            f"EKF f64 card within {FILTER_TOL['lm_f64']} of CPU f64 at every "
+            f"event ({diff:.3g})")
+    for key in (("ekf", torch.float64), ("ekf", torch.float32)):
+        ate = runs[key][1]
+        require(ate < LM_ATE_MAX, f"EKF {key[1]} ATE {ate:.4g} < "
+                                  f"{LM_ATE_MAX}")
+    require(no_sync, "the EKF and PF replays make no host read (CUDA sync "
+                     "debug mode)")
+    return dict(events_per_s={f"{a} {str(d)[6:]}": LM_EVENTS / w
+                              for (a, d), (_, _, w) in runs.items()},
+                ate={f"{a} {str(d)[6:]}": t for (a, d), (_, t, _)
+                     in runs.items()},
+                launches_per_event=per, idle_share=idle)
+
+
+def _row_ates(ds, times, xs):
+    """ATE of each row of xs (T, R, 3)."""
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+    from rustrobotics_tpu_torch.utils.state import GaussianState
+
+    return [lr.ate_vs_groundtruth(ds, times, GaussianState(x=xs[:, r],
+                                                           cov=None))
+            for r in range(xs.shape[1])]
+
+
+def fleet_phase(device, ds, refs):
+    """Phase fleet: run_utias_localization_fleet, bank FLEET_BANK,
+    LM_EVENTS events, f32: every row finite; FLEET_ROWS rows against the
+    unbanked EKF-KC (f64, CPU) from their initial states, within
+    FILTER_TOL and each row's ATE below LM_ATE_MAX; the same rows through
+    the banked path in f64 on the card against that reference;
+    events/s, filter-updates/s, launches per event, idle share, no host
+    read."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+
+    _, xs_default = lr.run_utias_localization_fleet(
+        ds, max_events=TRACE_EVENTS, device=_on(device))  # warm-up
+    noise = fleet_noise(FLEET_BANK, 0)
+    x0 = fleet_x0(ds, noise)
+    noise = noise.to(device)
+    (times, xs), wall = _timed(lambda: lr._run_utias_localization_fleet(
+        ds, noise, LM_EVENTS, FLEET_SPREAD, torch.float32, device), device)
+    rows = _fleet_rows(FLEET_BANK)
+    ev64 = ds.events(max_events=FLEET_F64_EVENTS, device=device)
+    cov64 = (torch.eye(3, dtype=torch.float64, device=device)
+             * 1e-10)[:, :, None].expand(3, 3, FLEET_ROWS)
+    xs64 = lr._replay_banked(lr.build_banked_filter(ds, torch.float64,
+                                                    device),
+                             x0[:, rows].double().to(device), cov64, ev64,
+                             lr._first_dt(ev64))
+
+    filt = lr.build_banked_filter(ds, torch.float32, device)
+    ev = ds.events(max_events=TRACE_EVENTS, dtype=torch.float32,
+                   device=device)
+    cov0 = (torch.eye(3, dtype=torch.float32, device=device)
+            * 1e-10)[:, :, None].expand(3, 3, FLEET_BANK)
+    x0b = x0.to(device)
+
+    def replay():
+        return lr._replay_banked(filt, x0b, cov0, ev, lr._first_dt(ev))
+
+    launches, idle = launch_trace(replay, device)
+    no_sync = no_host_read("fleet", replay, device)
+    per = None if launches is None else launches / TRACE_EVENTS
+    ref = refs.get()["fleet rows"]
+    mine = xs[:, :, rows].permute(0, 2, 1)
+    diff = _maxdiff(mine, ref, heading=2)
+    diff64 = _maxdiff(xs64.permute(0, 2, 1), ref[:FLEET_F64_EVENTS],
+                      heading=2)
+    ates = _row_ates(ds, times, mine.cpu())
+    ref_ates = _row_ates(ds, times, torch.as_tensor(ref))
+    print(f"[fleet] bank {FLEET_BANK}, {LM_EVENTS} events, f32: "
+          f"{LM_EVENTS / wall:.4f} events/s, "
+          f"{LM_EVENTS * FLEET_BANK / wall:.6g} filter-updates/s "
+          f"({wall:.4f} s); device launches per event {_fmt(per)}, device "
+          f"idle share {_fmt(idle)} (a traced replay of {TRACE_EVENTS} "
+          f"events)", flush=True)
+    print(f"[fleet] rows {rows.tolist()} against the unbanked EKF-KC (f64, "
+          f"CPU) from their initial states: max |diff| {diff:.6g} "
+          f"(heading wrapped); ATE f32 {max(ates):.6g} m at most, f64 "
+          f"{max(ref_ates):.6g}; the rows in f64 on the card, "
+          f"{FLEET_F64_EVENTS} events: max |diff| {diff64:.6g}", flush=True)
+    require(tuple(xs_default.shape) == (TRACE_EVENTS, 3, FLEET_BANK)
+            and xs_default.device.type == torch.device(device).type,
+            f"the fleet entry point's default bank {FLEET_BANK}, on the card")
+    require(bool(torch.isfinite(xs).all()), "every fleet row finite")
+    require(diff <= FILTER_TOL["fleet_rows"],
+            f"{FLEET_ROWS} fleet rows within {FILTER_TOL['fleet_rows']} of "
+            f"the unbanked EKF-KC ({diff:.3g})")
+    require(max(ates) < LM_ATE_MAX, f"every checked fleet row's ATE "
+                                    f"{max(ates):.4g} < {LM_ATE_MAX}")
+    require(diff64 <= FILTER_TOL["fleet_f64"],
+            f"the rows in f64 within {FILTER_TOL['fleet_f64']} of the "
+            f"unbanked EKF-KC ({diff64:.3g})")
+    require(no_sync, "the fleet replay makes no host read (CUDA sync "
+                     "debug mode)")
+    return dict(events_per_s=LM_EVENTS / wall,
+                updates_per_s=LM_EVENTS * FLEET_BANK / wall,
+                launches_per_event=per, idle_share=idle)
+
+
+def banked_phase(device, ds, refs):
+    """Phase banked: simple_problem_banked (B = BANKED_EKF_B) and
+    simple_problem_banked_ukf (B = BANKED_UKF_B), BANKED_STEPS chained
+    steps in f32 at the JAX package's benchmark settings; FLEET_ROWS
+    columns against the unbanked filter (f64, CPU); Mupdates/s. The UKF's
+    alpha = 0.001 puts its sigma weights at -1e6, past f32: its columns'
+    distance from f64 is printed, and the gate runs the same bank at
+    alpha = 1. Then the banked UKF-KC fleet (UKF_FLEET_B) on
+    UKF_FLEET_EVENTS UTIAS events in f32 (finite; its rows' distance from
+    the unbanked UKF-KC, f64, printed) and its rows in f64 on the card
+    against that reference."""
+    import torch
+
+    from rustrobotics_tpu_torch.localization import banked as bk
+    from rustrobotics_tpu_torch.localization import landmark_replay as lr
+    from rustrobotics_tpu_torch.localization.ekf import ExtendedKalmanFilter
+    from rustrobotics_tpu_torch.localization.ukf import (
+        UnscentedKalmanFilter,
+    )
+    from rustrobotics_tpu_torch.models import (
+        SimpleProblemMeasurementModel,
+        SimpleProblemMotionModel,
+    )
+    from rustrobotics_tpu_torch.utils.state import GaussianState
+
+    q = np.diag([0.1, 0.1, np.deg2rad(1.0), 1.0]) ** 2
+    r = np.diag([1.0, 1.0]) ** 2
+    f32 = torch.float32
+    q32, r32 = (torch.tensor(a, dtype=f32, device=device) for a in (q, r))
+    out = {}
+
+    def chain(filt, x0, dev, dtype):
+        x = torch.tensor(x0, dtype=dtype, device=dev)
+        b = x.shape[1]
+        cov = torch.eye(4, dtype=dtype, device=dev)[:, :, None].expand(
+            4, 4, b)
+        u = torch.tensor([1.0, 0.1], dtype=dtype, device=dev)[:, None]
+        z = torch.tensor([0.3, 0.2], dtype=dtype, device=dev)[:, None]
+        for _ in range(BANKED_STEPS):
+            x, cov = filt.step(x, cov, u.expand(2, b), z.expand(2, b), 0.1)
+        return x, cov
+
+    def unbanked(kind, x0, alpha):
+        mot = SimpleProblemMotionModel.create()
+        meas = SimpleProblemMeasurementModel.create()
+        if kind == "ekf":
+            filt = ExtendedKalmanFilter(r=torch.tensor(q),
+                                        q=torch.tensor(r), motion_model=mot,
+                                        measurement_model=meas)
+        else:
+            filt = UnscentedKalmanFilter.create(
+                q=q, r=r, motion_model=mot, measurement_model=meas,
+                alpha=alpha, beta=2.0, kappa=0.0, device="cpu")
+        state = GaussianState(x=torch.tensor(x0.T),
+                              cov=torch.eye(4, dtype=torch.float64).expand(
+                                  x0.shape[1], 4, 4))
+        u, z = torch.tensor([1.0, 0.1]), torch.tensor([0.3, 0.2])
+        for _ in range(BANKED_STEPS):
+            state = filt.step(state, u, z, 0.1)
+        return state.x
+
+    for kind, bank in (("ekf", BANKED_EKF_B), ("ukf", BANKED_UKF_B)):
+        x0 = np.random.default_rng(1).standard_normal((4, bank)) * 0.5
+        cols = _fleet_rows(bank)
+        alphas = (None,) if kind == "ekf" else (0.001, 1.0)
+        for alpha in alphas:
+            if kind == "ekf":
+                filt = bk.simple_problem_banked(q32, r32)
+            else:
+                filt = bk.simple_problem_banked_ukf(q32, r32, alpha=alpha)
+            chain(filt, x0[:, :2], device, f32)  # warm-up
+            (x, cov), wall = _timed(lambda: chain(filt, x0, device, f32),
+                                    device)
+            ref = unbanked(kind, x0[:, cols], alpha)
+            diff = _maxdiff(x[:, cols].T, ref)
+            rate = bank * BANKED_STEPS / wall / 1e6
+            name = kind if alpha is None else f"{kind} alpha={alpha}"
+            out[name] = rate
+            print(f"[banked] {name}, B = {bank}, {BANKED_STEPS} chained "
+                  f"steps, f32: {rate:.4f} Mupdates/s ({wall * 1e3:.4f} "
+                  f"ms); columns {cols.tolist()} against the unbanked "
+                  f"{kind.upper()} (f64, CPU): max |diff| {diff:.6g}",
+                  flush=True)
+            require(bool(torch.isfinite(x).all())
+                    and bool(torch.isfinite(cov).all()),
+                    f"banked {name} finite")
+            if alpha != 0.001:
+                tol = FILTER_TOL[f"banked_{kind}"]
+                require(diff <= tol, f"banked {name} columns within {tol} "
+                                     f"of the unbanked filter ({diff:.3g})")
+
+    def ukf_fleet(dtype, x0, dev, events):
+        alpha = torch.tensor(lr._ALPHA, dtype=dtype, device=dev)
+        qm = torch.diag(torch.tensor(lr._Q, dtype=dtype, device=dev))
+        filt = bk.velocity_banked_ukf_kc(
+            alpha, qm, lr._landmark_table(ds, dtype, dev))
+        ev = ds.events(max_events=events, dtype=dtype, device=dev)
+        cov0 = (torch.eye(3, dtype=dtype, device=dev)
+                * 1e-6)[:, :, None].expand(3, 3, x0.shape[1])
+        return lr._replay_banked(filt, x0.to(dev, dtype), cov0, ev,
+                                 lr._first_dt(ev))
+
+    x0 = fleet_x0(ds, fleet_noise(UKF_FLEET_B, 2))
+    rows = _fleet_rows(UKF_FLEET_B)
+    ukf_fleet(f32, x0, device, TRACE_EVENTS)  # warm-up
+    xs, wall = _timed(lambda: ukf_fleet(f32, x0, device, UKF_FLEET_EVENTS),
+                      device)
+    xs64 = ukf_fleet(torch.float64, x0[:, rows], device, UKF_FLEET_EVENTS)
+    ref = refs.get()["ukf rows"]
+    mine = xs[:, :, rows].permute(0, 2, 1)
+    diff = _maxdiff(mine, ref, heading=2)
+    diff64 = _maxdiff(xs64.permute(0, 2, 1), ref, heading=2)
+    times = ds.events(max_events=UKF_FLEET_EVENTS,
+                      device="cpu").times.numpy()
+    ates = _row_ates(ds, times, mine.cpu())
+    ref_ates = _row_ates(ds, times, torch.as_tensor(ref))
+    rate = UKF_FLEET_EVENTS * UKF_FLEET_B / wall / 1e6
+    out["ukf_kc_fleet"] = rate
+    print(f"[banked] UKF-KC fleet, B = {UKF_FLEET_B}, {UKF_FLEET_EVENTS} "
+          f"UTIAS events, f32: {rate:.4f} Mupdates/s "
+          f"({UKF_FLEET_EVENTS / wall:.4f} events/s); rows {rows.tolist()} "
+          f"against the unbanked UKF-KC (f64, CPU): max |diff| {diff:.6g} "
+          f"(heading wrapped), ATE f32 {max(ates):.6g} m at most, f64 "
+          f"{max(ref_ates):.6g}; the rows in f64 on the card: max |diff| "
+          f"{diff64:.6g}", flush=True)
+    require(bool(torch.isfinite(xs).all()), "UKF-KC fleet finite")
+    require(diff64 <= FILTER_TOL["ukf_fleet_f64"],
+            f"UKF-KC fleet rows in f64 within "
+            f"{FILTER_TOL['ukf_fleet_f64']} of the unbanked UKF-KC "
+            f"({diff64:.3g})")
+    return out
+
+
+def extra_phase(device, ds, refs):
+    """Phase filters-extra, against the CPU f64 runs: the parallel Kalman
+    filter and RTS smoother (card f64) against the sequential ones at T =
+    SCAN_T; the EIF-KC (card f64) against itself on the CPU and against
+    the EKF-KC on EIF_EVENTS UTIAS events; the histogram filter on a
+    HIST_GRID grid over HIST_EVENTS events (card f64 against CPU f64)."""
+    import torch
+
+    diffs = {}
+    for par, seq in (("parallel_linear_kalman_filter",
+                      "sequential_linear_kalman_filter"),
+                     ("parallel_rts_smoother", "sequential_rts_smoother")):
+        scan_run(par, device)  # warm-up
+        got, wall = _timed(lambda par=par: scan_run(par, device), device)
+        want = refs.get()[seq]
+        diffs[par] = max(_maxdiff(got.x, want["x"]),
+                         _maxdiff(got.cov, want["cov"]))
+        print(f"[filters-extra] {par}, T = {SCAN_T}, f64 on the card: "
+              f"{wall * 1e3:.4f} ms; against {seq} (CPU): max |diff| "
+              f"{diffs[par]:.6g}", flush=True)
+
+    eif_card, wall = _timed(lambda: eif_run(ds, device), device)
+    diffs["eif_f64"] = _maxdiff(eif_card, refs.get()["eif"], heading=2)
+    diffs["eif_ekf"] = _maxdiff(eif_card, refs.get()["eif ekf"],
+                                heading=2)
+    print(f"[filters-extra] EIF-KC, {EIF_EVENTS} UTIAS events, f64 on the "
+          f"card: {EIF_EVENTS / wall:.4f} events/s; against the CPU f64 run:"
+          f" max |diff| {diffs['eif_f64']:.6g}; against the EKF-KC (f64): "
+          f"max |diff| {diffs['eif_ekf']:.6g}", flush=True)
+
+    hist_run(ds, device)  # warm-up
+    (g_card, t_end), wall = _timed(lambda: hist_run(ds, device), device)
+    diffs["hist"] = _maxdiff(g_card.belief, refs.get()["hist"])
+    gt = ds.groundtruth
+    t_abs = t_end + gt[0, 0]
+    truth = np.array([np.interp(t_abs, gt[:, 0], gt[:, c]) for c in (1, 2)])
+    est = g_card.estimate().cpu().numpy()
+    print(f"[filters-extra] histogram filter, {HIST_GRID} grid, "
+          f"{HIST_EVENTS} events, f64 on the card: "
+          f"{HIST_EVENTS / wall:.4f} events/s; belief against the CPU f64 "
+          f"run: max |diff| {diffs['hist']:.6g}; final estimate "
+          f"{np.linalg.norm(est[:2] - truth):.6g} m from groundtruth",
+          flush=True)
+    for par in ("parallel_linear_kalman_filter", "parallel_rts_smoother"):
+        require(diffs[par] <= FILTER_TOL["scan"],
+                f"{par} within {FILTER_TOL['scan']} of the sequential one "
+                f"({diffs[par]:.3g})")
+    for key in ("eif_f64", "eif_ekf", "hist"):
+        require(diffs[key] <= FILTER_TOL[key],
+                f"{key} within {FILTER_TOL[key]} ({diffs[key]:.3g})")
+    require(bool(torch.isfinite(g_card.belief).all()), "histogram belief "
+                                                        "finite")
+    return diffs
+
+
 K12_GROUPS = {"K4 band_assemble": "band_assemble",
               "K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_nt": "gemm_nt",
               "K1 trail_offdiag": "trail_offdiag",
@@ -2696,12 +3557,24 @@ def trace(label, run, groups):
 
 
 def main() -> int:
+    import multiprocessing
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    # the filter phases' CPU f64 references, computed in a worker process
+    # beside the card's phases; the pool's exit terminates the worker
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return smoke(pool.apply_async(cpu_references))
+
+
+def smoke(refs) -> int:
+    """The phases on the card; ``refs`` the pending cpu_references()."""
+    import torch
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -2751,6 +3624,20 @@ def main() -> int:
     pg_launches = posegraph_phase(device)
     fixed_lag_phase(device)
     fe_launches = frontend_phase(device)
+    # the filters (this slice's paths), counters set to 0 around them: the
+    # filter path runs none of K1-K5
+    t_filters = time.perf_counter()
+    reset_counts()
+    utias = utias_dataset()
+    filters_sim_phase(device, refs)
+    landmarks_phase(device, utias, refs)
+    fleet_phase(device, utias, refs)
+    banked_phase(device, utias, refs)
+    extra_phase(device, utias, refs)
+    filter_launches = read_counts()
+    print(f"[filters] K1-K5 launches on the filter paths: {filter_launches}"
+          f"; the filter phases took "
+          f"{time.perf_counter() - t_filters:.2f} s", flush=True)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
     timed["banded_matvec"].update(k3_fleet_times(k3b))
@@ -2863,6 +3750,9 @@ def main() -> int:
         k.update(bootstrap_launches=boot_launches[key],
                  posegraph_launches=pg_launches[key],
                  frontend_launches=fe_launches[key])
+    for k, key in zip(kernels, ("factorize", "substitute", "banded_matvec",
+                                "assemble_b1", "assemble_batch")):
+        k["filters_launches"] = filter_launches[key]
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]

@@ -9,10 +9,17 @@ C++ and Python), ``PoseGraph`` and Gauss-Newton / Levenberg-Marquardt on
 every solver backend (``mapping.pgo``: one graph or a fleet, SE2 and SE3,
 robust kernels, marginals), chordal initialization, the online fixed-lag
 smoother, the SLAM-course loader (``data``) and front end, and the
-plotting helpers (``utils.plot``). The banded assembly, factorization and
-substitution, and the block-banded SpMV, are hand-written CUDA kernels for
-Hopper (``ops.band_assemble_kernels``, ``ops.band_chol_kernels``,
-``ops.banded_kernels``; sources in ``csrc/``).
+plotting helpers (``utils.plot``); and the Bayesian filters: the Gaussian
+state and MVN (``utils``), the motion and measurement models (``models``),
+EKF / UKF / PF / EIF / histogram filters, the banked fleet filters and the
+parallel Kalman scan (``localization``), the UTIAS loader (``data``) and
+both localization entry points (``localization.simulation.run_simulation``
+and ``localization.landmark_replay.run_utias_localization[_fleet]``). The
+banded assembly, factorization and substitution, and the block-banded
+SpMV, are hand-written CUDA kernels for Hopper
+(``ops.band_assemble_kernels``, ``ops.band_chol_kernels``,
+``ops.banded_kernels``; sources in ``csrc/``); the filters run no kernel of
+their own.
 
 Entry points take ``device=None`` and then run on ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions on the CPU.
