@@ -144,6 +144,42 @@ Phases; any failure ends the script with a non-zero exit code:
       the sequential ones at T = SCAN_T (f64), the EIF-KC on EIF_EVENTS
       events against the CPU run and the EKF-KC, the histogram filter on
       a HIST_GRID grid over HIST_EVENTS events against the CPU run;
+   the SLAM families, vision and control; they run none of K1-K5, whose
+   counters are printed around them, and their CPU f64 references
+   (slam_references) run in a second worker process from the start:
+   s. scan-matching: the JAX loop-closure test's room (±6 m walls, two
+      pillars) at its size, SCAN_TEST_STEPS scans of SCAN_TEST_BEAMS
+      beams, f32, with its gates (odometry leaves the loop open > 1 m,
+      scan_matching_slam_pgo closes it < 0.1 m, mean drift within 1.05x
+      odometry's); then a 2D lidar's width, SCAN_BEAMS beams, SCAN_STEPS
+      scans on SCAN_LAPS laps, a SCAN_GRID² grid at SCAN_RES m: ms an ICP
+      alignment, icp_odometry scans/s, closures, the pipeline's seconds,
+      occupancy scans/s, the map's free interior and occupied wall;
+      icp_odometry in f64 on the first scans, card against CPU;
+   t. ekf-slam: the JAX EKF-SLAM tests' gates on their simulation in f32
+      (known and unknown correspondences; Schmidt in f64, its f32 reading
+      printed); run_slam_course f64 and f32 on the front end's log and on
+      one of SLAM_BIG_LANDMARKS landmarks (events/s, map error), f64 held
+      to the CPU over the first SLAM_EKF_PARITY events; step_unknown
+      (ids hidden) and schmidt_step (half the slots consider states);
+      device launches per event, idle share, no host read in a replay;
+   u. fastslam: run_slam_course_fastslam versions 1 and 2 at
+      FS_PARTICLES particles, f32 (events/s, map error); both in f64 on
+      FS_SEED's draws, card against CPU event for event up to the first
+      resample whose rows differ; fastslam_step_unknown over
+      FS_UNKNOWN_EVENTS events; the JAX FastSLAM 2.0 test's gate on its
+      keys' draws (tests/data/fastslam2_gate_draws.npz), FS2_SEEDS other
+      seeds printed; launches per event, idle share, no host read;
+   v. vision: Zhang on VIS_VIEWS views of OpenCV's 9 x 6 chessboard with
+      radial distortion, DLT on VIS_DLT_POINTS points, PnP RANSAC
+      (VIS_PNP_HYPOTHESES hypotheses, VIS_PNP_POINTS points, 30%
+      outliers), triangulation of VIS_TRI_POINTS points in VIS_TRI_VIEWS
+      views, bundle adjustment at BAL Ladybug-49's shape (LM BA_ITERS):
+      ms a call in f32 and f64, the JAX vision tests' gates on the f32
+      run, f64 against the CPU, the BA's RMS trace;
+   w. control: the pendulum's DARE against scipy, the LQR closed loop,
+      simulate_inverted_pendulum's settling (f32, f64), an LQG rollout of
+      LQG_STEPS steps in f64 against the CPU on the same draws;
 5. times from CUDA events: each kernel, its plain version and a library
    yardstick, each beside its bound, as device time a call with the calls
    queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
@@ -160,7 +196,8 @@ Phases; any failure ends the script with a non-zero exit code:
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
    under *_b8 keys; K1, K2 and K4 with the launches of phases j, k and m
    under bootstrap_launches, posegraph_launches and frontend_launches,
-   and every kernel with filters_launches, 0: the filter phases run none),
+   and every kernel with filters_launches and slam_launches, 0: the
+   filter, SLAM, vision and control phases run none),
    then the contract line {"ok": true, "device": {...}}
    last.
 """
@@ -378,6 +415,53 @@ FILTER_TOL = {
     "eif_f64": 5e-9,        # EIF-KC card f64 against CPU f64 [5.3e-10]
     "eif_ekf": 1e-4,        # EIF-KC against EKF-KC, both f64 [8.6e-6]
     "hist": 1e-15,          # histogram belief, card against CPU [6.2e-17]
+}
+
+# The SLAM families, vision and control. scan-matching: the room of the JAX
+# package's loop-closure test (±SCAN_HALF m walls, two pillars), the robot
+# on a circle of radius SCAN_RADIUS facing along it; the test's own size
+# (SCAN_TEST_STEPS scans of SCAN_TEST_BEAMS beams, one lap), then a 2D
+# lidar's width (SCAN_BEAMS beams over 360 degrees, SCAN_STEPS scans on
+# SCAN_LAPS laps) mapped into a SCAN_GRID x SCAN_GRID grid at SCAN_RES m.
+SCAN_HALF, SCAN_RADIUS, SCAN_MAX_RANGE = 6.0, 2.0, 20.0
+SCAN_PILLARS = ((3.0, -2.0, 0.8), (-2.5, 3.5, 0.5))
+SCAN_TEST_STEPS, SCAN_TEST_BEAMS = 36, 240
+SCAN_STEPS, SCAN_BEAMS, SCAN_LAPS = 144, 720, 2
+SCAN_GRID, SCAN_RES, SCAN_PARITY_SCANS = 400, 0.05, 10
+# ekf-slam / fastslam: the front end's SLAM-course log (FE_LANDMARKS
+# landmarks) and one of SLAM_BIG_LANDMARKS landmarks along the same path;
+# SLAM_SPARE_SLOTS more slots for unknown correspondences. FastSLAM at
+# FS_PARTICLES (run_slam_course_fastslam's default), numpy draws from
+# FS_SEED for the f64 parity; the JAX FastSLAM 2.0 test's simulation on
+# its keys' draws and on FS2_SEEDS numpy seeds.
+SLAM_BIG_LANDMARKS, SLAM_SPARE_SLOTS = 256, 8
+# run_slam_course's covariance turns indefinite on the corridor log from
+# about event 120, in the JAX package too (tests/test_torch_slam_replay.py
+# pins it); from there f64 runs on two machines part. The card is held to
+# the CPU over the first SLAM_EKF_PARITY events.
+SLAM_EKF_PARITY = 100
+FS_PARTICLES, FS_SEED, FS_UNKNOWN_EVENTS, FS2_SEEDS = 256, 0, 200, 2
+FS_F64_EVENTS = 400  # events of the f64 card-against-CPU replay
+# vision: the JAX vision tests' camera K; OpenCV's 9 x 6 chessboard in
+# VIS_VIEWS views; DLT, PnP RANSAC and triangulation at the sizes below;
+# bundle adjustment at BAL Ladybug-49's shape (49 cameras, 7,776 points,
+# 31,843 observations), LM BA_ITERS. control: an LQG rollout of LQG_STEPS.
+VIS_K = np.array([[800.0, 2.0, 320.0], [0.0, 780.0, 240.0], [0.0, 0.0, 1.0]])
+VIS_SEED, VIS_VIEWS, VIS_SQUARE, VIS_PIXEL_NOISE = 0, 15, 0.025, 0.05
+VIS_K1, VIS_K2 = -0.25, 0.08
+VIS_DLT_POINTS, VIS_PNP_POINTS, VIS_PNP_OUTLIERS = 100, 1000, 0.3
+VIS_PNP_HYPOTHESES, VIS_TRI_POINTS, VIS_TRI_VIEWS = 256, 10000, 5
+BA_CAMERAS, BA_POINTS, BA_OBSERVATIONS, BA_ITERS = 49, 7776, 31843, 20
+LQG_STEPS, LQG_SEED = 1000, 0
+# Card f64 against CPU f64 on the same inputs and draws (max |diff|;
+# vision: relative to max(1, |CPU result|)); about 10x the first card
+# readings (NVIDIA H100 80GB HBM3, 700.00 W), in brackets.
+SLAM_TOL = {
+    "scan_f64": 1e-13,       # icp_odometry poses, first scans [5.1e-15]
+    "ekf_f64": 4e-9,         # EKF-SLAM, first SLAM_EKF_PARITY events [4.0e-10]
+    "fastslam_f64": 1e-11,   # FastSLAM poses and log-weights [7.4e-13]
+    "vision_f64": 3e-10,     # every vision result [3.3e-11]
+    "lqg_f64": 4e-14,        # LQG rollout: states, estimates [3.8e-15]
 }
 
 
@@ -3476,6 +3560,1104 @@ def extra_phase(device, ds, refs):
     return diffs
 
 
+# ------------------------------------ SLAM families, vision and control
+
+
+def room_ranges(poses, angles, pillars=SCAN_PILLARS, half=SCAN_HALF):
+    """Ranges (T, B) from poses (T, 3) along beam angles (B,) to the
+    walls of a ±half square room and circular pillars [cx, cy, radius]
+    (numpy; the room of the JAX package's loop-closure test)."""
+    th = poses[:, 2:3] + angles[None, :]
+    dx, dy = np.cos(th), np.sin(th)
+    px, py = poses[:, :1], poses[:, 1:2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tx = np.where(dx > 0, (half - px) / dx,
+                      np.where(dx < 0, (-half - px) / dx, np.inf))
+        ty = np.where(dy > 0, (half - py) / dy,
+                      np.where(dy < 0, (-half - py) / dy, np.inf))
+    r = np.minimum(tx, ty)
+    for cx, cy, rad in pillars:
+        ox, oy = px - cx, py - cy
+        b = ox * dx + oy * dy
+        disc = b * b - (ox * ox + oy * oy - rad * rad)
+        t_hit = -b - np.sqrt(np.clip(disc, 0.0, None))
+        r = np.minimum(r, np.where((disc > 0) & (t_hit > 0), t_hit, np.inf))
+    return r
+
+
+def scan_data(steps, beams, laps, dtype, device):
+    """A robot on laps of the circle of radius SCAN_RADIUS in the room,
+    facing along it: (ground truth (T, 3) numpy, scans (T, B), angles
+    (B,) on device)."""
+    import torch
+
+    ts = np.linspace(0, 2 * np.pi * laps, steps, endpoint=False)
+    gt = np.stack([SCAN_RADIUS * np.cos(ts), SCAN_RADIUS * np.sin(ts),
+                   _wrap(ts + np.pi / 2)], -1)
+    angles = np.linspace(-np.pi, np.pi, beams, endpoint=False)
+    return (gt, torch.tensor(room_ranges(gt, angles), dtype=dtype,
+                             device=device),
+            torch.tensor(angles, dtype=dtype, device=device))
+
+
+def scan_parity_run(device):
+    """icp_odometry in f64 on the first SCAN_PARITY_SCANS scans of the
+    lidar cell: poses (S, 3)."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.scan_matching import icp_odometry
+
+    _, sc, an = scan_data(SCAN_STEPS, SCAN_BEAMS, SCAN_LAPS, torch.float64,
+                          device)
+    return icp_odometry(sc[:SCAN_PARITY_SCANS], an, SCAN_MAX_RANGE)[0]
+
+
+def slam_course_dataset(num_landmarks):
+    """write_slam_course (seed 0) of slam_course_world(FE_POSES,
+    num_landmarks), loaded: the front end's log at num_landmarks =
+    FE_LANDMARKS."""
+    import tempfile
+
+    from rustrobotics_tpu_torch.data import load_slam_course
+
+    path, landmarks = slam_course_world(FE_POSES, num_landmarks)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_slam_course(tmp, path, landmarks, seed=0)
+        return load_slam_course(tmp)
+
+
+def fastslam_record(ds, version, dtype, device):
+    """run_slam_course_fastslam's replay (FS_PARTICLES particles) over the
+    first FS_F64_EVENTS events on numpy draws from FS_SEED, event by event:
+    (poses (T, N, 3), logw (T, N)) as numpy."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import slam_replay as sr
+
+    t_len, n = FS_F64_EVENTS, FS_PARTICLES
+    rng = np.random.default_rng(FS_SEED)
+    draws = {"init": rng.standard_normal((n, 3))}
+    if version == 2:
+        draws["eps"] = rng.standard_normal((t_len, n, 3))
+    else:
+        draws["motion"] = rng.standard_normal((t_len, 3))
+    draws["resample"] = rng.random(t_len)
+    draws = {k: torch.tensor(v, dtype=dtype, device=device)
+             for k, v in draws.items()}
+    odometry, z, valid = sr._slam_inputs(ds, dtype, device)
+    slam = sr._fastslam(ds, (1e-4, 2e-5, 5e-5, 2e-5), (0.2, 0.1), dtype,
+                        device)
+    parts = slam._init_particles(torch.zeros(3, dtype=dtype, device=device),
+                                 draws["init"])
+    poses, logw = [], []
+    for t in range(t_len):
+        one = {k: v[t:t + 1] for k, v in draws.items() if k != "init"}
+        parts = sr._fastslam_replay(slam, parts, odometry[t:t + 1],
+                                    z[t:t + 1], valid[t:t + 1], one, version)
+        poses.append(parts.poses)
+        logw.append(parts.logw)
+    return torch.stack(poses).cpu().numpy(), torch.stack(logw).cpu().numpy()
+
+
+def chessboard_views(seed=VIS_SEED):
+    """OpenCV's 9 x 6 chessboard (inner corners, VIS_SQUARE m squares)
+    seen by K = VIS_K in VIS_VIEWS views, board tilted up to ±0.35 rad
+    about x and y and ±0.2 about z, 0.35-0.6 m away: (object points
+    (54, 2), ideal pixels (V, 54, 2) and the same through the radial model
+    (VIS_K1, VIS_K2), each with N(0, VIS_PIXEL_NOISE²) noise, rs (V, 3,
+    3), ts (V, 3)); numpy default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(9) * VIS_SQUARE, np.arange(6) * VIS_SQUARE)
+    obj = np.stack([gx.ravel(), gy.ravel()], -1)
+    obj3 = np.concatenate([obj, np.zeros((len(obj), 1))], 1)
+    center = obj3.mean(0)
+    kinv = np.linalg.inv(VIS_K)
+    ideal, distorted, rs, ts = [], [], [], []
+    for _ in range(VIS_VIEWS):
+        r = _rot3(*rng.uniform([-0.35, -0.35, -0.2], [0.35, 0.35, 0.2]))
+        t = -r @ center + rng.uniform([-0.03, -0.03, 0.35],
+                                      [0.03, 0.03, 0.6])
+        uv = _pixels(VIS_K, r, t, obj3)
+        xn = np.concatenate([uv, np.ones((len(uv), 1))], 1) @ kinv.T
+        r2 = np.sum(xn[:, :2] ** 2, -1, keepdims=True)
+        uvd = uv + (uv - VIS_K[:2, 2]) * (VIS_K1 * r2 + VIS_K2 * r2 * r2)
+        ideal.append(uv + rng.normal(size=uv.shape) * VIS_PIXEL_NOISE)
+        distorted.append(uvd + rng.normal(size=uv.shape) * VIS_PIXEL_NOISE)
+        rs.append(r)
+        ts.append(t)
+    return (obj, np.stack(ideal), np.stack(distorted), np.stack(rs),
+            np.stack(ts))
+
+
+def _rot3(rx, ry, rz):
+    cx, sx, cy, sy = np.cos(rx), np.sin(rx), np.cos(ry), np.sin(ry)
+    cz, sz = np.cos(rz), np.sin(rz)
+    return (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+            @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+            @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]))
+
+
+def _pixels(k, r, t, pts):
+    uvw = (pts @ r.T + t) @ k.T
+    return uvw[:, :2] / uvw[:, 2:3]
+
+
+def _quat(r):
+    """Rotation matrix (near the identity) -> quaternion [w, x, y, z]."""
+    s = np.sqrt(np.trace(r) + 1.0) * 2
+    return np.array([0.25 * s, (r[2, 1] - r[1, 2]) / s,
+                     (r[0, 2] - r[2, 0]) / s, (r[1, 0] - r[0, 1]) / s])
+
+
+def vision_scenes(seed=VIS_SEED):
+    """Every synthetic vision input (numpy, default_rng(seed)): the DLT's
+    VIS_DLT_POINTS points, the PnP problem (VIS_PNP_POINTS points, a
+    VIS_PNP_OUTLIERS share of bearings replaced by random directions, the
+    VIS_PNP_HYPOTHESES sample triples), VIS_TRI_POINTS points in
+    VIS_TRI_VIEWS views, and the bundle-adjustment problem at BAL
+    Ladybug-49's shape (BA_CAMERAS cameras 1 m apart along a street,
+    BA_POINTS points 5-15 m ahead, each seen by a run of consecutive
+    cameras, BA_OBSERVATIONS observations with N(0, 0.1²) px noise; the
+    guess perturbed by N(0, 0.05²) on camera translations but the first,
+    and on the points)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    r, t = _rot3(0.2, 0.1, -0.3), np.array([0.3, 0.1, 3.0])
+    pts = rng.uniform(-1, 1, (VIS_DLT_POINTS, 3))
+    out["dlt"] = (pts, _pixels(VIS_K, r, t, pts)
+                  + rng.normal(size=(VIS_DLT_POINTS, 2)) * 0.05, r, t)
+    r, t = _rot3(0.15, -0.25, 0.3), np.array([0.1, 0.2, 1.2])
+    world = rng.uniform(-1, 1, (VIS_PNP_POINTS, 3)) + np.array([0, 0, 3.0])
+    cam = world @ r.T + t
+    bear = cam / np.linalg.norm(cam, axis=1, keepdims=True)
+    bad = rng.choice(VIS_PNP_POINTS, int(VIS_PNP_OUTLIERS * VIS_PNP_POINTS),
+                     replace=False)
+    nd = rng.normal(size=(len(bad), 3))
+    bear[bad] = nd / np.linalg.norm(nd, axis=1, keepdims=True)
+    idx = rng.integers(0, VIS_PNP_POINTS, (VIS_PNP_HYPOTHESES, 3))
+    out["pnp"] = (world, bear, idx, bad, r, t)
+    specs = [(0, 0, 0, 0, 0, 0), (0.05, -0.1, 0.02, 0.4, 0, 0.1),
+             (-0.08, 0.12, 0.0, -0.35, 0.1, 0.05),
+             (0.03, 0.08, -0.02, 0.2, -0.3, 0.0),
+             (-0.04, -0.06, 0.03, -0.2, 0.25, 0.1)][:VIS_TRI_VIEWS]
+    rts = [(_rot3(*s[:3]), np.array(s[3:])) for s in specs]
+    ps = np.stack([VIS_K @ np.concatenate([r, t[:, None]], 1)
+                   for r, t in rts])
+    pts = rng.uniform(-1, 1, (VIS_TRI_POINTS, 3)) + np.array([0, 0, 4.0])
+    obs = np.stack([_pixels(VIS_K, r, t, pts) for r, t in rts], 1)
+    out["tri"] = (ps, obs + rng.normal(size=obs.shape) * 0.1, pts)
+    out["ba"] = _ba_scene(rng)
+    return out
+
+
+def _ba_scene(rng):
+    c, p = BA_CAMERAS, BA_POINTS
+    lengths = rng.integers(2, 7, p)
+    while lengths.sum() != BA_OBSERVATIONS:
+        i = rng.integers(p)
+        step = 1 if lengths.sum() < BA_OBSERVATIONS else -1
+        if 2 <= lengths[i] + step <= 8:
+            lengths[i] += step
+    first = rng.integers(0, c - lengths + 1)
+    centers = np.stack([np.arange(c) * 1.0, np.zeros(c), np.zeros(c)], -1)
+    rots = [_rot3(*rng.normal(size=3) * 0.02) for _ in range(c)]
+    cams = np.stack([np.concatenate([-r @ ctr, _quat(r)])
+                     for r, ctr in zip(rots, centers)])
+    mid = first + (lengths - 1) / 2.0
+    pts = np.stack([mid + rng.uniform(-1.5, 1.5, p),
+                    rng.uniform(-2.0, 2.0, p), rng.uniform(5.0, 15.0, p)], -1)
+    obs_cam = np.concatenate([np.arange(f, f + n)
+                              for f, n in zip(first, lengths)])
+    obs_pt = np.repeat(np.arange(p), lengths)
+    uv = np.concatenate([
+        _pixels(VIS_K, rots[ci], cams[ci, :3], pts[pi][None])
+        for ci, pi in zip(obs_cam, obs_pt)])
+    uv = uv + rng.normal(size=uv.shape) * 0.1
+    cams0 = cams.copy()
+    cams0[1:, :3] += rng.normal(size=(c - 1, 3)) * 0.05
+    pts0 = pts + rng.normal(size=pts.shape) * 0.05
+    return cams, pts, cams0, pts0, obs_cam, obs_pt, uv
+
+
+def vision_runs(device, dtype):
+    """Every vision entry point on vision_scenes() and chessboard_views()
+    in dtype on device: a dict of numpy results, and of each call's host
+    seconds (the call's result synchronized)."""
+    import torch
+
+    from rustrobotics_tpu_torch import vision
+    from rustrobotics_tpu_torch.vision.bundle import bundle_adjust
+    from rustrobotics_tpu_torch.vision.p3p import _pnp_ransac
+
+    def tt(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    scenes = vision_scenes()
+    obj, ideal, distorted, rs, ts = chessboard_views()
+    k = tt(VIS_K)
+    out, secs = {}, {}
+
+    def run(name, fn):
+        res, secs[name] = _timed(fn, device)
+        out[name] = [r.detach().cpu().numpy() if isinstance(r, torch.Tensor)
+                     else np.asarray(r) for r in res]
+
+    run("zhang", lambda: vision.zhang_calibrate(tt(obj), tt(ideal)))
+    run("radial", lambda: (vision.estimate_radial_distortion(
+        k, tt(rs), tt(ts), tt(obj), tt(distorted)),))
+    kz, rz, tz = (tt(a) for a in out["zhang"][:3])
+    out["radial zhang"] = [vision.estimate_radial_distortion(
+        kz, rz, tz, tt(obj), tt(distorted)).cpu().numpy()]
+    pts, uv = scenes["dlt"][:2]
+    run("dlt", lambda: (lambda p, krt: (p, *krt))(
+        *vision.dlt_camera(tt(pts), tt(uv))))
+    world, bear, idx = scenes["pnp"][:3]
+    run("pnp", lambda: _pnp_ransac(tt(world), tt(bear),
+                                   torch.tensor(idx, device=device)))
+    ps, obs = scenes["tri"][:2]
+    run("tri", lambda: (vision.triangulate(tt(ps), tt(obs)),))
+    _, _, cams0, pts0, obs_cam, obs_pt, uv = scenes["ba"]
+    run("ba", lambda: (lambda c, p, e: (c, p, np.asarray(e)))(
+        *bundle_adjust(k, tt(cams0), tt(pts0), obs_cam, obs_pt, tt(uv),
+                       num_iterations=BA_ITERS, solver="lm")))
+    return out, secs
+
+
+def control_runs(device, dtype):
+    """The control entry points in dtype on device, as numpy: the
+    pendulum's DARE (max_iter 100000, epsilon 1e-10), its LQR gain,
+    simulate_inverted_pendulum, and an LQG rollout of LQG_STEPS steps on
+    numpy draws from LQG_SEED (the JAX LQG test's cart-pole)."""
+    import torch
+
+    from rustrobotics_tpu_torch.control import inverted_pendulum as ip
+    from rustrobotics_tpu_torch.control import lqg
+    from rustrobotics_tpu_torch.control.lqr import lqr, solve_dare
+
+    def tt(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    lin = ip.InvertedPendulumModel.create(dtype=dtype,
+                                          device=device).linearize(0.01)
+    out = {"p": solve_dare(lin, max_iter=100000, epsilon=1e-10),
+           "k": lqr(lin, max_iter=500, epsilon=0.01)}
+    out["states"], out["commands"] = ip.simulate_inverted_pendulum(
+        dtype=dtype, device=device)
+    dt = 0.02
+    g0, lp, mc, mp = 9.8, 0.5, 1.0, 0.1
+    a = np.array([[1.0, dt, 0.0, 0.0], [0.0, 1.0, -dt * mp * g0 / mc, 0.0],
+                  [0.0, 0.0, 1.0, dt],
+                  [0.0, 0.0, dt * (mc + mp) * g0 / (lp * mc), 1.0]])
+    b = np.array([[0.0], [dt / mc], [0.0], [-dt / (lp * mc)]])
+    model = lqg.LinearTimeInvariantModel(
+        a=tt(a), b=tt(b), q=tt(np.diag([1.0, 0.1, 10.0, 0.1])),
+        r=tt(np.eye(1) * 0.1))
+    ctrl = lqg.lqg(model, tt([[1.0, 0, 0, 0], [0, 0, 1.0, 0]]),
+                   tt(np.eye(4) * 1e-5), tt(np.eye(2) * 1e-4))
+    rng = np.random.default_rng(LQG_SEED)
+    out["xs"], out["xhs"], out["us"] = lqg._rollout(
+        ctrl, tt([0.3, 0.0, 0.15, 0.0]),
+        tt(rng.standard_normal((LQG_STEPS, 4))),
+        tt(rng.standard_normal((LQG_STEPS, 2))),
+        tt(np.eye(4) * np.sqrt(1e-5)), tt(np.eye(2) * np.sqrt(1e-4)))
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def ekf_slam_prefix(ds, device):
+    """run_slam_course's f64 state after the first SLAM_EKF_PARITY events
+    of ds."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import slam_replay as sr
+
+    f64, n = torch.float64, SLAM_EKF_PARITY
+    odometry, z, valid = sr._slam_inputs(ds, f64, device)
+    slam = sr._ekf_slam(ds, (0.05, 0.01, 0.02, 0.01), (0.2, 0.1), f64, device)
+    st0 = slam.init_state(torch.zeros(3, dtype=f64, device=device))
+    return sr._replay(slam, st0, odometry[:n], z[:n], valid[:n])[0]
+
+
+def slam_references():
+    """The CPU f64 runs the SLAM, vision and control phases hold the card
+    to, as numpy; run in a worker process beside cpu_references'."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import slam_replay as sr
+
+    torch.set_num_threads(2)
+    refs = {"scan": scan_parity_run("cpu").numpy()}
+    ds = slam_course_dataset(FE_LANDMARKS)
+    traj, _ = sr.run_slam_course(ds, dtype=torch.float64, device="cpu")
+    st = ekf_slam_prefix(ds, "cpu")
+    refs["ekf slam"] = {"traj": traj, "x": st.x.numpy(), "cov": st.cov.numpy()}
+    for version in (1, 2):
+        refs[f"fastslam {version}"] = fastslam_record(ds, version,
+                                                      torch.float64, "cpu")
+    refs["vision"] = vision_runs("cpu", torch.float64)[0]
+    refs["control"] = control_runs("cpu", torch.float64)
+    return refs
+
+
+def scan_phase(device, refs):
+    """Phase scan-matching: (1) the JAX loop-closure test's room and size
+    (SCAN_TEST_STEPS scans of SCAN_TEST_BEAMS beams on one lap), f32 on
+    the card, with its gates: odometry alone leaves the loop open by more
+    than 1 m, scan_matching_slam_pgo closes it below 0.1 m and keeps the
+    mean drift within 1.05x odometry's; (2) a 2D lidar's width, SCAN_BEAMS
+    beams over 360 degrees, SCAN_STEPS scans on SCAN_LAPS laps, a
+    SCAN_GRID x SCAN_GRID grid at SCAN_RES m: ms per ICP alignment,
+    icp_odometry scans/s, closures, the pipeline's seconds, occupancy
+    scans/s, the map's free interior and occupied wall; (3) icp_odometry
+    in f64 on the first SCAN_PARITY_SCANS scans, card against CPU."""
+    import torch
+
+    from rustrobotics_tpu_torch.geometry import se2
+    from rustrobotics_tpu_torch.mapping import scan_matching as sm
+    from rustrobotics_tpu_torch.mapping.icp import icp
+    from rustrobotics_tpu_torch.mapping.occupancy import (
+        OccupancyGrid,
+        integrate_trajectory,
+    )
+
+    f32 = torch.float32
+    gt, sc, an = scan_data(SCAN_TEST_STEPS, SCAN_TEST_BEAMS, 1, f32, device)
+    poses_odo, _, _ = sm.icp_odometry(sc, an, SCAN_MAX_RANGE)
+    (poses, _, graph), wall = _timed(lambda: sm.scan_matching_slam_pgo(
+        sc, an, SCAN_MAX_RANGE, closure_gap=8, closure_radius=2.0,
+        grid_size=120, resolution=0.2), device)
+    truth = {"g": None}
+
+    def gap(p):
+        g, p = truth["g"], p.double().cpu()
+        return float((se2.relative(p[0], p[-1])[:2]
+                      - se2.relative(g[0], g[-1])[:2]).norm())
+
+    def drift(p):
+        g = truth["g"]
+        return float((p[:, :2].double().cpu() - g[:, :2]).norm(dim=1).mean())
+
+    truth["g"] = torch.tensor(gt)
+
+    closures = graph.pp_from.shape[0] - (SCAN_TEST_STEPS - 1)
+    print(f"[scan-matching] the JAX test's room, {SCAN_TEST_STEPS} scans x "
+          f"{SCAN_TEST_BEAMS} beams, f32: loop gap odometry "
+          f"{gap(poses_odo):.6g} m, after scan_matching_slam_pgo "
+          f"{gap(poses):.6g} m ({closures} closures, {wall:.4f} s); mean "
+          f"drift {drift(poses):.6g} m against odometry's "
+          f"{drift(poses_odo):.6g}", flush=True)
+    require(gap(poses_odo) > 1.0, "odometry alone leaves the loop open "
+                                  "(> 1 m)")
+    require(gap(poses) < 0.1, "scan_matching_slam_pgo closes the loop "
+                              "(< 0.1 m)")
+    require(drift(poses) <= 1.05 * drift(poses_odo),
+            "mean drift within 1.05x odometry's")
+
+    gt, sc, an = scan_data(SCAN_STEPS, SCAN_BEAMS, SCAN_LAPS, f32, device)
+    truth["g"] = torch.tensor(gt)
+    pts, _ = sm.scan_to_points(sc[:2], an, SCAN_MAX_RANGE)
+    icp(pts[1], pts[0], 15, 0.9)  # warm-up
+    _, wall = _timed(lambda: [icp(pts[1], pts[0], 15, 0.9)
+                              for _ in range(10)], device)
+    ms_icp = wall / 10 * 1e3
+    icp_launches, icp_idle = launch_trace(lambda: icp(pts[1], pts[0], 15,
+                                                      0.9), device)
+    sm.icp_odometry(sc[:4], an, SCAN_MAX_RANGE)  # warm-up
+    (poses_odo, _, _), wall_odo = _timed(
+        lambda: sm.icp_odometry(sc, an, SCAN_MAX_RANGE), device)
+    kw = dict(closure_gap=8, closure_radius=2.0, grid_size=SCAN_GRID,
+              resolution=SCAN_RES)
+    (poses, grid, graph), wall_pgo = _timed(lambda: sm.scan_matching_slam_pgo(
+        sc, an, SCAN_MAX_RANGE, **kw), device)
+    closures = graph.pp_from.shape[0] - (SCAN_STEPS - 1)
+    empty = OccupancyGrid.create(SCAN_GRID, SCAN_GRID, SCAN_RES,
+                                 origin=(-SCAN_GRID * SCAN_RES / 2,) * 2,
+                                 dtype=f32, device=device)
+    grid2, wall_occ = _timed(lambda: integrate_trajectory(
+        empty, poses, sc, an, SCAN_MAX_RANGE, 96), device)
+    prob = grid2.probability.cpu().numpy()
+
+    def cells_at(xy):
+        """p at world points xy (n, 2): the map is in the first pose's
+        frame."""
+        c0, s0 = np.cos(gt[0, 2]), np.sin(gt[0, 2])
+        d = xy - gt[0, :2]
+        rc = (np.stack([c0 * d[:, 0] + s0 * d[:, 1],
+                        -s0 * d[:, 0] + c0 * d[:, 1]], -1)
+              + SCAN_GRID * SCAN_RES / 2) / SCAN_RES
+        return prob[np.floor(rc[:, 1]).astype(int),
+                    np.floor(rc[:, 0]).astype(int)]
+
+    g1 = np.linspace(-0.5, 0.5, 11)
+    interior = cells_at(np.stack(np.meshgrid(g1, g1), -1).reshape(-1, 2))
+    interior = interior.max()
+    wx, wy = np.meshgrid(np.linspace(-1.0, 1.0, 21),
+                         -SCAN_HALF + np.array([-1, 0, 1]) * SCAN_RES)
+    wall_band = cells_at(np.stack([wx.ravel(), wy.ravel()], -1))
+    print(f"[scan-matching] lidar width, {SCAN_STEPS} scans x {SCAN_BEAMS} "
+          f"beams on {SCAN_LAPS} laps, f32: one ICP alignment (15 "
+          f"iterations, {SCAN_BEAMS} x {SCAN_BEAMS}) {ms_icp:.4f} ms, "
+          f"{_fmt(None if icp_launches is None else icp_launches / 15)} "
+          f"device launches an iteration, idle share {_fmt(icp_idle)}; "
+          f"icp_odometry {SCAN_STEPS / wall_odo:.4f} scans/s; "
+          f"scan_matching_slam_pgo {wall_pgo:.4f} s ({closures} closures, "
+          f"{SCAN_GRID} x {SCAN_GRID} grid at {SCAN_RES} m); occupancy "
+          f"integration {SCAN_STEPS / wall_occ:.4f} scans/s; loop gap "
+          f"odometry {gap(poses_odo):.6g} m, optimized {gap(poses):.6g} m; "
+          f"mean drift {drift(poses):.6g} m against odometry's "
+          f"{drift(poses_odo):.6g}", flush=True)
+    print(f"[scan-matching] map: interior max p {interior:.4f}, wall band "
+          f"max p {wall_band.max():.4f}; grid equal to the pipeline's: "
+          f"{bool(torch.equal(grid2.log_odds, grid.log_odds))}", flush=True)
+    card = scan_parity_run(device)
+    diff = _maxdiff(card, refs.get()["scan"], heading=2)
+    print(f"[scan-matching] icp_odometry f64, first {SCAN_PARITY_SCANS} "
+          f"scans, card against CPU: max |diff| {diff:.6g}", flush=True)
+    require(closures > 0 and gap(poses) < gap(poses_odo) / 5
+            and drift(poses) <= 1.05 * drift(poses_odo),
+            "lidar-width loop gap cut 5x by ICP closures, mean drift within "
+            "1.05x odometry's")
+    require(interior < 0.25 and wall_band.max() > 0.7,
+            "map interior free (p < 0.25), wall occupied (p > 0.7)")
+    require(diff <= SLAM_TOL["scan_f64"],
+            f"icp_odometry f64 card within {SLAM_TOL['scan_f64']} of CPU "
+            f"({diff:.3g})")
+    return dict(ms_icp=ms_icp, odometry_scans_per_s=SCAN_STEPS / wall_odo,
+                pgo_s=wall_pgo, closures=closures,
+                occupancy_scans_per_s=SCAN_STEPS / wall_occ)
+
+
+def ekf_sim(num_steps=400, num_landmarks=6, dt=0.1, seed=0):
+    """tests/test_ekf_slam.py::_simulate (numpy): the true poses (T, 3),
+    landmarks (L, 2), measurements (T, L, 2), masks (T, L), control, dt."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, num_landmarks, endpoint=False)
+    lms = 6.0 * np.stack([np.cos(ang), np.sin(ang)], -1)
+    x = np.array([3.0, 0.0, np.pi / 2])
+    u = np.array([1.0, 1.0 / 3.0])
+    poses, zs, masks = [], [], []
+    for _ in range(num_steps):
+        th = x[2]
+        x = x + np.array([u[0] / u[1] * (-np.sin(th) + np.sin(th + u[1] * dt)),
+                          u[0] / u[1] * (np.cos(th) - np.cos(th + u[1] * dt)),
+                          u[1] * dt])
+        x[2] = _wrap(x[2])
+        poses.append(x.copy())
+        d = lms - x[:2]
+        r = np.hypot(d[:, 0], d[:, 1])
+        z = np.zeros((num_landmarks, 2))
+        for kk in np.flatnonzero(r < 5.0):
+            z[kk] = [r[kk] + rng.normal(0, 0.03),
+                     np.arctan2(d[kk, 1], d[kk, 0]) - x[2]
+                     + rng.normal(0, 0.01)]
+        zs.append(z)
+        masks.append(r < 5.0)
+    return (np.asarray(poses), lms, np.asarray(zs), np.asarray(masks), u, dt)
+
+
+def ekf_sim_gates(device):
+    """The JAX EKF-SLAM tests' gates on their simulation, f32 on the card:
+    known correspondences (ATE < 0.15 m, all 6 seen, landmarks within
+    0.2 m, covariance symmetric and PSD), unknown correspondences (ATE <
+    0.2 m, 6 tracks, each within 0.25 m of its own landmark) and Schmidt
+    (the last 40 errors below 0.2 m with half the map frozen, trace at
+    least the full filter's). Returns the readings."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.ekf_slam import (
+        EkfSlamKnownCorrespondences,
+        schmidt_step,
+    )
+    from rustrobotics_tpu_torch.models import VelocityMotionModel
+
+    f32 = torch.float32
+    poses, lms, zs, masks, u, dt = ekf_sim()
+
+    def slam(extra=0, alphas=(0.005,) * 4 + (0.001,) * 2,
+             q=(0.03 ** 2, 0.01 ** 2)):
+        return EkfSlamKnownCorrespondences.create(
+            q=torch.diag(torch.tensor(q, dtype=f32)).to(device),
+            motion_model=VelocityMotionModel.create(alphas, device, f32),
+            max_landmarks=len(lms) + extra)
+
+    ut = torch.tensor(u, dtype=f32, device=device)
+    z_t = torch.tensor(zs, dtype=f32, device=device)
+    x0 = torch.tensor([3.0, 0.0, np.pi / 2], dtype=f32, device=device)
+    out = {}
+    s = slam()
+    st, traj = s.init_state(x0), []
+    for t in range(len(zs)):
+        st = s.predict(st, ut, dt)
+        for kk in np.flatnonzero(masks[t]):
+            st = s._update(st, int(kk), z_t[t, kk])
+        traj.append(st.x[:3])
+    traj = torch.stack(traj).double().cpu().numpy()
+    out["known_ate"] = float(np.sqrt(np.mean(np.sum(
+        (traj[:, :2] - poses[:, :2]) ** 2, -1))))
+    est = st.landmarks.double().cpu().numpy()
+    out["known_lm"] = float(np.linalg.norm(est - lms, axis=-1).max())
+    cov = st.cov.double().cpu().numpy()
+    out["known_asym"] = float(np.abs(cov - cov.T).max())
+    out["known_min_eig"] = float(np.linalg.eigvalsh(cov).min())
+    seen_known = int(st.seen.sum())
+
+    s = slam(extra=4)
+    rng = np.random.default_rng(7)
+    st, traj = s.init_state(x0), []
+    for t in range(len(zs)):
+        p = rng.permutation(zs.shape[1])
+        st = s.predict(st, ut, dt)
+        for m in np.flatnonzero(masks[t][p]):
+            kk, _, usable = s.associate(st, z_t[t, p[m]])
+            st = s.update_one(st, kk, z_t[t, p[m]], usable)
+        traj.append(st.x[:3])
+    traj = torch.stack(traj).double().cpu().numpy()
+    out["unknown_ate"] = float(np.sqrt(np.mean(np.sum(
+        (traj[:, :2] - poses[:, :2]) ** 2, -1))))
+    seen = st.seen.cpu().numpy()
+    est = st.landmarks.double().cpu().numpy()[seen]
+    d = np.linalg.norm(est[:, None, :] - lms[None, :, :], axis=-1)
+    out["unknown_tracks"] = int(seen.sum())
+    out["unknown_lm"] = float(d.min(axis=1).max())
+    unique = len(set(d.argmin(axis=1))) == len(lms)
+
+    for dtype in (torch.float64, f32):
+        out[f"schmidt {str(dtype)[6:]}"] = schmidt_sim(device, dtype)
+    print(f"[ekf-slam] the JAX tests' simulation, f32 on the card: known "
+          f"ATE {out['known_ate']:.6g} m, landmarks within "
+          f"{out['known_lm']:.6g} m ({seen_known} seen), covariance "
+          f"asymmetry {out['known_asym']:.3g}, min eigenvalue "
+          f"{out['known_min_eig']:.3g}; unknown ATE {out['unknown_ate']:.6g}"
+          f" m, {out['unknown_tracks']} tracks within {out['unknown_lm']:.6g}"
+          f" m", flush=True)
+    for key in ("schmidt float64", "schmidt float32"):
+        err, eig, excess = out[key]
+        print(f"[ekf-slam] the JAX Schmidt test, {key[8:]}: last-40 error "
+              f"{err:.6g} m, min eigenvalue {eig:.3g}, trace over the full "
+              f"filter's {excess:.6g}", flush=True)
+    require(out["known_ate"] < 0.15 and seen_known == len(lms)
+            and out["known_lm"] < 0.2,
+            "EKF-SLAM f32: ATE < 0.15 m, every landmark seen within 0.2 m")
+    require(out["known_asym"] <= 1e-6 and out["known_min_eig"] > -1e-6,
+            "EKF-SLAM f32 covariance symmetric (1e-6) and PSD (-1e-6)")
+    require(out["unknown_ate"] < 0.2 and out["unknown_tracks"] == len(lms)
+            and out["unknown_lm"] < 0.25 and unique,
+            "unknown correspondences f32: ATE < 0.2 m, one track per "
+            "landmark within 0.25 m")
+    err, eig, excess = out["schmidt float64"]
+    require(err < 0.2 and eig > -1e-10 and excess >= -1e-9,
+            "Schmidt f64: last-40 error < 0.2 m, PSD, trace >= the full "
+            "filter's (its general-gain form loses PSD in f32, in the JAX "
+            "package too: printed above)")
+    return out
+
+
+def schmidt_sim(device, dtype):
+    """tests/test_ekf_slam.py::test_schmidt_ekf_consider_states in dtype
+    on device: the full filter and the one with landmarks 3-5 frozen
+    from step 60, one noise stream for both runs. Returns the consider
+    run's last-40 mean error, its covariance's least eigenvalue and its
+    trace less the full run's."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.ekf_slam import (
+        EkfSlamKnownCorrespondences,
+        schmidt_step,
+    )
+    from rustrobotics_tpu_torch.models import VelocityMotionModel
+
+    lms = np.array([[4.0, 0.0], [0.0, 4.0], [-4.0, 0.0], [0.0, -4.0],
+                    [3.0, 3.0], [-3.0, 3.0]])
+    slam = EkfSlamKnownCorrespondences.create(
+        q=torch.diag(torch.tensor([0.1, 0.05], dtype=dtype) ** 2).to(device),
+        motion_model=VelocityMotionModel.create((0.02, 0.005, 0.01, 0.005),
+                                                device, dtype),
+        max_landmarks=len(lms))
+    u = torch.tensor([0.8, 0.25], dtype=dtype, device=device)
+    ids = torch.arange(len(lms), device=device)
+    ones = torch.ones(len(lms), dtype=torch.bool, device=device)
+    rng = np.random.default_rng(0)
+    states, errs = {}, {}
+    for consider in (False, True):
+        st = slam.init_state(torch.zeros(3, dtype=dtype, device=device))
+        pose, est, truth = np.zeros(3), [], []
+        for t in range(200):
+            th = pose[2]
+            pose = pose + np.array([0.8 * 0.1 * np.cos(th),
+                                    0.8 * 0.1 * np.sin(th), 0.25 * 0.1])
+            d = lms - pose[:2]
+            z = np.stack([np.linalg.norm(d, axis=1)
+                          + rng.normal(size=len(lms)) * 0.1,
+                          np.arctan2(d[:, 1], d[:, 0]) - pose[2]
+                          + rng.normal(size=len(lms)) * 0.05], -1)
+            cl = torch.tensor([False] * 3 + [consider and t >= 60] * 3,
+                              device=device)
+            st = schmidt_step(slam, st, u, True, ids,
+                              torch.tensor(z, dtype=dtype, device=device),
+                              ones, 0.1, cl)
+            est.append(st.x[:2])
+            truth.append(pose[:2].copy())
+        states[consider] = st.cov.double().cpu().numpy()
+        errs[consider] = np.linalg.norm(torch.stack(est).double().cpu()
+                                        .numpy() - np.asarray(truth), axis=-1)
+    return (float(errs[True][-40:].mean()),
+            float(np.linalg.eigvalsh(states[True]).min()),
+            float(np.trace(states[True]) - np.trace(states[False])))
+
+
+def ekf_slam_phase(device, refs):
+    """Phase ekf-slam: run_slam_course on the front end's log (FE_LANDMARKS
+    landmarks) in f64 (held event for event to the CPU f64 run) and f32,
+    and on a SLAM_BIG_LANDMARKS-landmark log along the same path (a
+    3 + 2 x SLAM_BIG_LANDMARKS state); step_unknown on the
+    FE_LANDMARKS-landmark stream with its ids hidden; schmidt_step with
+    the first half of the slots as consider states; events/s, device
+    launches per event and idle share of a traced replay of TRACE_EVENTS
+    events, no host read in a replay; the JAX tests' gates on their
+    simulation (ekf_sim_gates)."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import slam_replay as sr
+    from rustrobotics_tpu_torch.mapping.ekf_slam import schmidt_step
+
+    f32, f64 = torch.float32, torch.float64
+    out = {"sim": ekf_sim_gates(device)}
+    logs = {FE_LANDMARKS: slam_course_dataset(FE_LANDMARKS),
+            SLAM_BIG_LANDMARKS: slam_course_dataset(SLAM_BIG_LANDMARKS)}
+    runs = {}
+    for lms_count, ds in logs.items():
+        t_len = len(ds.odometry)
+        for dtype in ((f64, f32) if lms_count == FE_LANDMARKS else (f32,)):
+            (traj, st), wall = _timed(lambda: sr.run_slam_course(
+                ds, dtype=dtype, device=_on(device)), device)
+            mx, mean, seen = sr.landmark_map_error(ds, st)
+            runs[(lms_count, dtype)] = (traj, st)
+            out[f"{lms_count} {str(dtype)[6:]} events/s"] = t_len / wall
+            print(f"[ekf-slam] run_slam_course, {lms_count} landmarks "
+                  f"(state {3 + 2 * lms_count}), {t_len} events, "
+                  f"{str(dtype)[6:]}: {t_len / wall:.4f} events/s; map "
+                  f"error mean {mean:.6g} m, max {mx:.6g} m, {seen} seen",
+                  flush=True)
+            require(bool(torch.isfinite(st.cov).all()) and np.isfinite(
+                traj).all(), f"{lms_count}-landmark {dtype} replay finite")
+    drift = _maxdiff(runs[(FE_LANDMARKS, f32)][0],
+                     runs[(FE_LANDMARKS, f64)][0], heading=2)
+    print(f"[ekf-slam] {FE_LANDMARKS} landmarks: f32 trajectory against f64 "
+          f"on the card: max |diff| {drift:.6g}", flush=True)
+    ref = refs.get()["ekf slam"]
+    traj, st = runs[(FE_LANDMARKS, f64)]
+    n = SLAM_EKF_PARITY
+    prefix = ekf_slam_prefix(logs[FE_LANDMARKS], device)
+    diff = max(_maxdiff(traj[:n], ref["traj"][:n], heading=2),
+               _maxdiff(prefix.x, ref["x"]), _maxdiff(prefix.cov, ref["cov"]))
+    d = traj - ref["traj"]
+    d[:, 2] = _wrap(d[:, 2])
+    steps = np.abs(d).max(1)
+    part = np.flatnonzero(steps > SLAM_TOL["ekf_f64"])
+    eig = float(torch.linalg.eigvalsh(st.cov.cpu()).min())
+    print(f"[ekf-slam] f64, card against CPU, the first {n} poses and the "
+          f"state there: max |diff| {diff:.6g}; the trajectories part (> "
+          f"{SLAM_TOL['ekf_f64']}) from event "
+          f"{int(part[0]) if len(part) else 'none'}; least eigenvalue of "
+          f"the final f64 covariance {eig:.6g}", flush=True)
+    require(diff <= SLAM_TOL["ekf_f64"], f"EKF-SLAM f64 card within "
+                                         f"{SLAM_TOL['ekf_f64']} of CPU "
+                                         f"over {n} events ({diff:.3g})")
+
+    ds = logs[FE_LANDMARKS]
+    odometry, z, valid = sr._slam_inputs(ds, f32, device)
+    slam = sr._ekf_slam(ds, (0.05, 0.01, 0.02, 0.01), (0.2, 0.1), f32,
+                        device, extra_slots=SLAM_SPARE_SLOTS)
+    state0 = slam.init_state(torch.zeros(3, dtype=f32, device=device))
+
+    def unknown(events=len(ds.odometry)):
+        st = state0
+        for t in range(events):
+            st = slam.predict(st, odometry[t], 0.0)
+            for _, m in valid[t]:
+                kk, _, usable = slam.associate(st, z[t, m])
+                st = slam.update_one(st, kk, z[t, m], usable)
+        return st
+
+    unknown(TRACE_EVENTS)  # warm-up
+    st_u, wall = _timed(unknown, device)
+    seen = st_u.seen.cpu().numpy()
+    est = st_u.landmarks.double().cpu().numpy()[seen]
+    near = np.linalg.norm(est[:, None] - ds.landmarks[None], axis=-1).min(1)
+    print(f"[ekf-slam] step_unknown (ids hidden, {FE_LANDMARKS} + "
+          f"{SLAM_SPARE_SLOTS} slots), f32: {len(ds.odometry) / wall:.4f} "
+          f"events/s; {int(seen.sum())} tracks, nearest true landmark mean "
+          f"{near.mean():.6g} m, max {near.max():.6g} m", flush=True)
+    require(seen.any() and np.isfinite(est).all(), "step_unknown tracks "
+                                                   "finite")
+
+    consider = torch.arange(FE_LANDMARKS + SLAM_SPARE_SLOTS,
+                            device=device) < FE_LANDMARKS // 2
+
+    def schmidt():
+        st = state0
+        for t in range(len(ds.odometry)):
+            st = schmidt_step(slam, st, odometry[t], True,
+                              [k for k, _ in valid[t]],
+                              [z[t, m] for _, m in valid[t]],
+                              [True] * len(valid[t]), 0.0, consider)
+        return st
+
+    st_s, wall = _timed(schmidt, device)
+    lm = st_s.landmarks.double().cpu().numpy()[:FE_LANDMARKS]
+    err = np.linalg.norm(lm - ds.landmarks, axis=-1)
+    half = FE_LANDMARKS // 2
+    print(f"[ekf-slam] schmidt_step (slots 0-{half - 1} consider states), "
+          f"f32: {len(ds.odometry) / wall:.4f} events/s; map error consider "
+          f"half mean {err[:half].mean():.6g} m, active half "
+          f"{err[half:].mean():.6g} m", flush=True)
+    require(np.isfinite(lm).all(), "Schmidt replay finite")
+
+    ev = TRACE_EVENTS
+    traced = {"odometry": odometry[:ev], "z": z[:ev], "valid": valid[:ev]}
+    slam_k = sr._ekf_slam(ds, (0.05, 0.01, 0.02, 0.01), (0.2, 0.1), f32,
+                          device)
+    st0 = slam_k.init_state(torch.zeros(3, dtype=f32, device=device))
+
+    def replay():
+        return sr._replay(slam_k, st0, traced["odometry"], traced["z"],
+                          traced["valid"])
+
+    launches, idle = launch_trace(replay, device)
+    per = None if launches is None else launches / ev
+    no_sync = no_host_read("ekf-slam", replay, device)
+    print(f"[ekf-slam] f32 replay of {ev} events under torch.profiler: "
+          f"device launches per event {_fmt(per)}, idle share {_fmt(idle)}",
+          flush=True)
+    require(no_sync, "the EKF-SLAM replay makes no host read (CUDA sync "
+                     "debug mode)")
+    out.update(launches_per_event=per, idle_share=idle)
+    return out
+
+
+def fastslam_phase(device, refs):
+    """Phase fastslam: run_slam_course_fastslam version 1 and 2 at
+    FS_PARTICLES particles on the front end's log, f32 (events/s, map
+    error); the same replays in f64 on FS_SEED's numpy draws, card against
+    CPU event for event up to the first resample whose indices differ;
+    fastslam_step_unknown over FS_UNKNOWN_EVENTS events of the stream with
+    its ids hidden; the JAX FastSLAM 2.0 test's gate on its simulation and
+    its own keys' draws (tests/data/fastslam2_gate_draws.npz), and
+    FS2_SEEDS other seeds printed; launches per event, idle share, no host
+    read."""
+    import pathlib
+
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import slam_replay as sr
+    from rustrobotics_tpu_torch.mapping.fastslam import (
+        FastSlam,
+        _fastslam2_step,
+        _fastslam_step_unknown,
+    )
+    from rustrobotics_tpu_torch.models import VelocityMotionModel
+
+    f32, f64 = torch.float32, torch.float64
+    ds = slam_course_dataset(FE_LANDMARKS)
+    t_len = len(ds.odometry)
+    out = {}
+    for version in (1, 2):
+        def entry(version=version):
+            return sr.run_slam_course_fastslam(
+                ds, num_particles=FS_PARTICLES, version=version, dtype=f32,
+                device=_on(device))
+
+        (parts, est, seen), wall = _timed(entry, device)
+        err = np.linalg.norm(est[seen] - ds.landmarks[seen], axis=-1)
+        out[f"v{version} events/s"] = t_len / wall
+        print(f"[fastslam] run_slam_course_fastslam version {version}, "
+              f"{FS_PARTICLES} particles, {t_len} events, f32: "
+              f"{t_len / wall:.4f} events/s; map error mean {err.mean():.6g}"
+              f" m, max {err.max():.6g} m, {int(seen.sum())} seen",
+              flush=True)
+        require(bool(torch.isfinite(parts.poses).all()) and seen.any(),
+                f"FastSLAM {version} f32 cloud finite")
+        poses, logw = fastslam_record(ds, version, f64, device)
+        ref_poses, ref_logw = refs.get()[f"fastslam {version}"]
+        n64 = FS_F64_EVENTS
+        d = np.abs(poses - ref_poses).reshape(n64, -1).max(1)
+        d = np.maximum(d, np.abs(logw - ref_logw).max(1))
+        bad = np.flatnonzero(d > SLAM_TOL["fastslam_f64"])
+        agree = int(bad[0]) if len(bad) else n64
+        reset = (agree < n64 and ((logw[agree] == 0).all()
+                                  or (ref_logw[agree] == 0).all()))
+        print(f"[fastslam] version {version} f64 on FS_SEED's draws, card "
+              f"against CPU: the first {agree} of {n64} events within "
+              f"{SLAM_TOL['fastslam_f64']} (max |diff| "
+              f"{d[:agree].max() if agree else math.nan:.6g})"
+              + (f"; at event {agree} a resample's rows differ"
+                 if agree < n64 else ""), flush=True)
+        require(agree == n64 or (reset and agree > 0),
+                f"FastSLAM {version} f64 card equals CPU up to a resample "
+                f"({agree} events)")
+
+    odometry, z, valid = sr._slam_inputs(ds, f32, device)
+    slam_u = sr._fastslam(ds, (1e-4, 2e-5, 5e-5, 2e-5), (0.2, 0.1), f32,
+                          device, extra_slots=SLAM_SPARE_SLOTS)
+    gen = torch.Generator(device).manual_seed(FS_SEED)
+    noise = torch.randn((FS_UNKNOWN_EVENTS, 3), generator=gen, dtype=f32,
+                        device=device)
+    uniforms = torch.rand((FS_UNKNOWN_EVENTS,), generator=gen, dtype=f32,
+                          device=device)
+    p0 = slam_u._init_particles(torch.zeros(3, dtype=f32, device=device),
+                                torch.zeros((FS_PARTICLES, 3), device=device))
+
+    def unknown(events=FS_UNKNOWN_EVENTS):
+        p = p0
+        for t in range(events):
+            p = _fastslam_step_unknown(slam_u, p, odometry[t], True,
+                                       [z[t, m] for _, m in valid[t]],
+                                       [True] * len(valid[t]), 0.0, noise[t],
+                                       uniforms[t])
+        return p
+
+    unknown(10)  # warm-up
+    p_u, wall = _timed(unknown, device)
+    tracks = p_u.seen.sum(1).float()
+    print(f"[fastslam] fastslam_step_unknown, {FS_UNKNOWN_EVENTS} events, "
+          f"{FS_PARTICLES} particles, f32: {FS_UNKNOWN_EVENTS / wall:.4f} "
+          f"events/s; tracks per particle mean {float(tracks.mean()):.4f}",
+          flush=True)
+    require(bool(torch.isfinite(p_u.poses).all()), "unknown-correspondence "
+                                                   "cloud finite")
+
+    lms, events, dt = fastslam_sim(220)
+    gate = dict(np.load(pathlib.Path(__file__).resolve().parent / "tests"
+                        / "data" / "fastslam2_gate_draws.npz"))
+    slam_g = FastSlam.create(
+        q=torch.diag(torch.tensor([0.08, 0.04], dtype=f32) ** 2).to(device),
+        motion_model=VelocityMotionModel.create(
+            [0.04, 0.02, 0.015, 0.008, 0.008, 0.004], device, f32),
+        max_landmarks=len(lms))
+    inputs = [tuple(torch.tensor(a, dtype=f32 if a.dtype.kind == "f"
+                                 else None, device=device)
+                    for a in ev[:4]) for ev in events]
+    truth = np.stack([ev[4] for ev in events])
+
+    def gate_run(version, draws):
+        p = slam_g._init_particles(torch.zeros(3, dtype=f32, device=device),
+                                   draws["init"])
+        est = []
+        for i, (u, ids, zz, vis) in enumerate(inputs):
+            args = (u, True, ids, zz, vis, dt)
+            if version == 2:
+                p = _fastslam2_step(slam_g, p, *args, draws["eps"][i],
+                                    draws["resample"][i])
+            else:
+                p = slam_g._step(p, *args, draws["vel"][i],
+                                 draws["resample"][i])
+            est.append(slam_g.estimate(p)[0][:2])
+        e = np.linalg.norm(torch.stack(est).double().cpu().numpy()
+                           - truth[:, :2], axis=-1)
+        return float(e[-40:].mean())
+
+    def as_dev(d):
+        return {k: torch.tensor(v, dtype=f32, device=device)
+                for k, v in d.items()}
+
+    err2 = gate_run(2, as_dev(gate))
+    err1 = gate_run(1, as_dev(gate))
+    seeds = []
+    for seed in range(FS2_SEEDS):
+        rng = np.random.default_rng(seed)
+        d = {"init": rng.standard_normal((12, 3)),
+             "vel": rng.standard_normal((220, 3, 12)),
+             "eps": rng.standard_normal((220, 12, 3)),
+             "resample": rng.random(220)}
+        seeds.append((gate_run(2, as_dev(d)), gate_run(1, as_dev(d))))
+    print(f"[fastslam] the JAX FastSLAM 2.0 test (12 particles, 220 events) "
+          f"on its keys' draws, f32: last-40 error version 2 {err2:.6g} m, "
+          f"version 1 {err1:.6g} m (the JAX test reads 0.18 / 0.42); on "
+          f"numpy seeds 0-{FS2_SEEDS - 1}: "
+          + ", ".join(f"{a:.4f} / {b:.4f}" for a, b in seeds), flush=True)
+    require(err2 < 0.35 and err2 <= 0.8 * err1,
+            "FastSLAM 2.0 error < 0.35 m and <= 0.8x FastSLAM 1.0's on the "
+            "JAX test's draws")
+
+    slam_t = sr._fastslam(ds, (1e-4, 2e-5, 5e-5, 2e-5), (0.2, 0.1), f32,
+                          device)
+    ev = TRACE_EVENTS
+    draws = {"motion": noise[:ev], "resample": uniforms[:ev]}
+    pt0 = slam_t._init_particles(torch.zeros(3, dtype=f32, device=device),
+                                 torch.zeros((FS_PARTICLES, 3), device=device))
+
+    def replay():
+        return sr._fastslam_replay(slam_t, pt0, odometry[:ev], z[:ev],
+                                   valid[:ev], draws, 1)
+
+    launches, idle = launch_trace(replay, device)
+    per = None if launches is None else launches / ev
+    no_sync = no_host_read("fastslam", replay, device)
+    print(f"[fastslam] version 1 f32 replay of {ev} events under "
+          f"torch.profiler: device launches per event {_fmt(per)}, idle "
+          f"share {_fmt(idle)}", flush=True)
+    require(no_sync, "the FastSLAM replay makes no host read (CUDA sync "
+                     "debug mode)")
+    out.update(gate=(err2, err1), seeds=seeds, launches_per_event=per,
+               idle_share=idle)
+    return out
+
+
+def fastslam_sim(steps, num_landmarks=6, seed=0, unoise=(0.2, 0.12),
+                 vis_r=9.0):
+    """tests/test_new_components.py::_fastslam_sim (numpy): a list of
+    (control, ids, measurements, visible, true pose) events, and the
+    landmarks and dt."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(0, 2 * np.pi, num_landmarks, endpoint=False)
+    lms = 5.6 * np.stack([np.cos(ang), np.sin(ang)], -1) + np.array([0, 5.6])
+    dt, pose, events = 0.1, np.zeros(3), []
+    for _ in range(steps):
+        u = np.array([1.0, 0.18])
+        nu = u + rng.normal(size=2) * unoise
+        pose = np.array([pose[0] + nu[0] * dt * np.cos(pose[2]),
+                         pose[1] + nu[0] * dt * np.sin(pose[2]),
+                         pose[2] + nu[1] * dt])
+        d = lms - pose[:2]
+        rngs = np.linalg.norm(d, axis=1)
+        z = np.stack([rngs + rng.normal(size=len(lms)) * 0.08,
+                      np.arctan2(d[:, 1], d[:, 0]) - pose[2]
+                      + rng.normal(size=len(lms)) * 0.04], -1)
+        events.append((u, np.arange(len(lms)), z, rngs < vis_r, pose.copy()))
+    return lms, events, dt
+
+
+def vision_phase(device, refs):
+    """Phase vision: vision_runs in f32 and f64 on the card (ms a call;
+    the f64 results against the CPU's, SLAM_TOL["vision_f64"] relative to
+    each result's scale) and the JAX vision tests' gates on the f32 run:
+    Zhang's K within 8 px on 15 chessboard views and (k1, k2) within 0.02,
+    the DLT's reprojection (< 0.5 px) and pose, RANSAC PnP's pose and
+    inliers with 30% outliers, triangulation within 0.02 of the truth,
+    bundle adjustment's χ² down by 1e-3, RMS < 0.2 px, camera 0 fixed.
+    Prints the BA's reprojection RMS trace."""
+    import torch
+
+    scenes = vision_scenes()
+    vision_runs(device, torch.float32)  # warm-up
+    res32, secs = vision_runs(device, torch.float32)
+    res64, secs64 = vision_runs(device, torch.float64)
+    ref = refs.get()["vision"]
+    worst = 0.0
+    for name, got in res64.items():
+        for a, b in zip(got, ref[name]):
+            if a.dtype.kind == "f":
+                scale = max(1.0, float(np.abs(b).max()))
+                worst = max(worst, float(np.abs(a - b).max()) / scale)
+            else:
+                worst = max(worst, float((a != b).any()))
+    print("[vision] ms a call, f32 (f64): "
+          + ", ".join(f"{k} {secs[k] * 1e3:.4f} ({secs64[k] * 1e3:.4f})"
+                      for k in secs), flush=True)
+    print(f"[vision] f64, card against CPU: max |diff| / max(1, |CPU "
+          f"result|) {worst:.6g}", flush=True)
+    k_est = res32["zhang"][0]
+    k_err = np.abs(k_est[[0, 1, 0, 1], [0, 1, 2, 2]]
+                   - VIS_K[[0, 1, 0, 1], [0, 1, 2, 2]]).max()
+    dist = res32["radial"][0]
+    dist_z = res32["radial zhang"][0]
+    p_est, k2, r2, t2 = res32["dlt"]
+    pts, uv, r_true, t_true = scenes["dlt"]
+    uvw = np.concatenate([pts, np.ones((len(pts), 1))], 1) @ p_est.T
+    reproj = np.abs(uvw[:, :2] / uvw[:, 2:3] - uv).max()
+    dlt_ok = (reproj < 0.5 and np.allclose(k2 * VIS_K[2, 2], VIS_K,
+                                           rtol=2e-3, atol=0.5)
+              and np.abs(r2 - r_true).max() < 5e-3
+              and np.abs(t2 - t_true).max() < 2e-2)
+    r_p, t_p, inl = res32["pnp"]
+    _, _, _, bad, r_pt, t_pt = scenes["pnp"]
+    n_in = VIS_PNP_POINTS - len(bad)
+    tri_err = np.abs(res32["tri"][0] - scenes["tri"][2]).max()
+    cams, _, _, _, obs_cam, _, _ = scenes["ba"]
+    c_ba, _, errors = res32["ba"]
+    rms = np.sqrt(errors / (2 * BA_OBSERVATIONS))
+    print(f"[vision] Zhang on {VIS_VIEWS} views of the 9 x 6 board: K "
+          f"within {k_err:.6g} px, (k1, k2) = ({dist[0]:.6g}, "
+          f"{dist[1]:.6g}) against ({VIS_K1}, {VIS_K2}) at the true "
+          f"extrinsics, ({dist_z[0]:.6g}, {dist_z[1]:.6g}) at Zhang's "
+          f"(f64: ({res64['radial zhang'][0][0]:.6g}, "
+          f"{res64['radial zhang'][0][1]:.6g})); DLT on "
+          f"{VIS_DLT_POINTS} points: reprojection {reproj:.6g} px; PnP "
+          f"RANSAC ({VIS_PNP_HYPOTHESES} hypotheses, {VIS_PNP_POINTS} points,"
+          f" {len(bad)} outliers): R within {np.abs(r_p - r_pt).max():.3g}, "
+          f"t within {np.abs(t_p - t_pt).max():.3g}, {int(inl.sum())} of "
+          f"{n_in} inliers, {int(inl[bad].sum())} outliers kept; "
+          f"triangulation of {VIS_TRI_POINTS} points in {VIS_TRI_VIEWS} "
+          f"views: max error {tri_err:.6g}", flush=True)
+    print(f"[vision] bundle adjustment, {BA_CAMERAS} cameras, {BA_POINTS} "
+          f"points, {BA_OBSERVATIONS} observations, LM {BA_ITERS}, f32: "
+          f"reprojection RMS trace (px) "
+          f"{[round(float(x), 6) for x in rms]}", flush=True)
+    require(k_err < 8.0, "Zhang K within 8 px (f32)")
+    require(np.abs(dist - [VIS_K1, VIS_K2]).max() < 0.02,
+            "radial distortion within 0.02 at the true extrinsics (f32), "
+            "as the JAX test holds it")
+    require(dlt_ok, "DLT reprojection < 0.5 px, K, R and t recovered (f32)")
+    require(np.abs(r_p - r_pt).max() < 5e-3 and np.abs(t_p - t_pt).max()
+            < 2e-2 and inl.sum() >= 0.9 * n_in and not inl[bad].any(),
+            "PnP RANSAC pose, >= 90% of the inliers, no outlier (f32)")
+    require(tri_err < 0.02, "triangulation within 0.02 (f32)")
+    require(errors[-1] < errors[0] * 1e-3 and rms[-1] < 0.2
+            and np.abs(c_ba[0] - cams[0]).max() < 1e-4,
+            "BA χ² down by 1e-3, RMS < 0.2 px, camera 0 fixed (f32)")
+    require(worst <= SLAM_TOL["vision_f64"],
+            f"vision f64 card within {SLAM_TOL['vision_f64']} of CPU")
+    return dict(ms={k: v * 1e3 for k, v in secs.items()},
+                ba_rms=rms.tolist())
+
+
+def control_phase(device, refs):
+    """Phase control: control_runs in f32 and f64 on the card. The DARE
+    against scipy.linalg.solve_discrete_are (rtol 1e-6, f64), the LQR
+    closed loop strictly stable, the pendulum settled (the JAX tests'
+    gates: the final state within 1e-3 of 0, the last 100 angles within
+    1e-2), the LQG rollout of LQG_STEPS steps in f64 against the CPU's
+    on the same draws, and within the JAX LQG test's bands."""
+    import scipy.linalg
+    import torch
+
+    from rustrobotics_tpu_torch.control import inverted_pendulum as ip
+
+    (r64, wall64) = _timed(lambda: control_runs(device, torch.float64),
+                           device)
+    r32 = control_runs(device, torch.float32)
+    lin = ip.InvertedPendulumModel.create(dtype=torch.float64,
+                                          device="cpu").linearize(0.01)
+    p_ref = scipy.linalg.solve_discrete_are(
+        *(getattr(lin, f).numpy() for f in ("a", "b", "q", "r")))
+    dare = float(np.abs(r64["p"] - p_ref).max() / np.abs(p_ref).max())
+    eig = float(np.abs(np.linalg.eigvals(lin.a.numpy() - lin.b.numpy()
+                                         @ r64["k"])).max())
+    ref = refs.get()["control"]
+    diff = max(_maxdiff(r64[k], ref[k]) for k in ("xs", "xhs", "us"))
+    drift32 = _maxdiff(r32["xs"], r64["xs"])
+    xs = r32["xs"]
+    print(f"[control] DARE against scipy: max rel |diff| {dare:.3g}; LQR "
+          f"closed-loop spectral radius {eig:.6g}; pendulum final |x| "
+          f"{np.abs(r32['states'][-1]).max():.3g} (f32), "
+          f"{np.abs(r64['states'][-1]).max():.3g} (f64); LQG rollout "
+          f"{LQG_STEPS} steps: f64 card against CPU max |diff| {diff:.6g}, "
+          f"f32 against f64 {drift32:.6g}; control_runs f64 "
+          f"{wall64 * 1e3:.4f} ms", flush=True)
+    require(dare < 1e-6, "DARE within 1e-6 of scipy (f64)")
+    require(eig < 1.0, "LQR closed loop strictly stable")
+    for r in (r32, r64):
+        require(np.abs(r["states"][-1]).max() < 1e-3
+                and np.abs(r["states"][-100:, 2]).max() < 1e-2,
+                "pendulum settles (final 1e-3, last 100 angles 1e-2)")
+    require(diff <= SLAM_TOL["lqg_f64"],
+            f"LQG f64 rollout card within {SLAM_TOL['lqg_f64']} of CPU")
+    require(np.abs(xs[-50:, 2]).max() < 0.1 and np.abs(xs[-50:, 0]).max()
+            < 0.6 and np.abs(r32["xhs"][-50:] - xs[-50:]).max() < 0.1,
+            "LQG f32 holds the JAX test's bands (angle 0.1, cart 0.6, "
+            "estimate 0.1)")
+    return dict(dare=dare, lqg_f64=diff)
+
+
 K12_GROUPS = {"K4 band_assemble": "band_assemble",
               "K1 panel_chol_inv": "panel_chol_inv", "K1 gemm_nt": "gemm_nt",
               "K1 trail_offdiag": "trail_offdiag",
@@ -3565,14 +4747,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    # the filter phases' CPU f64 references, computed in a worker process
-    # beside the card's phases; the pool's exit terminates the worker
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        return smoke(pool.apply_async(cpu_references))
+    # the CPU f64 references, computed in two worker processes beside the
+    # card's phases; the pool's exit terminates the workers
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        return smoke(pool.apply_async(cpu_references),
+                     pool.apply_async(slam_references))
 
 
-def smoke(refs) -> int:
-    """The phases on the card; ``refs`` the pending cpu_references()."""
+def smoke(refs, slam_refs) -> int:
+    """The phases on the card; ``refs`` and ``slam_refs`` the pending
+    cpu_references() and slam_references()."""
     import torch
 
     smi = subprocess.run(
@@ -3638,6 +4822,27 @@ def smoke(refs) -> int:
     print(f"[filters] K1-K5 launches on the filter paths: {filter_launches}"
           f"; the filter phases took "
           f"{time.perf_counter() - t_filters:.2f} s", flush=True)
+    # the SLAM families, vision and control, counters set to 0 around
+    # them: these paths run none of K1-K5
+    t_slam = time.perf_counter()
+    slam_refs.wait()
+    waited = time.perf_counter() - t_slam
+    reset_counts()
+    walls = {}
+    for name, phase in (("scan-matching", scan_phase),
+                        ("ekf-slam", ekf_slam_phase),
+                        ("fastslam", fastslam_phase),
+                        ("vision", vision_phase), ("control", control_phase)):
+        t0 = time.perf_counter()
+        phase(device, slam_refs)
+        walls[name] = time.perf_counter() - t0
+    slam_launches = read_counts()
+    print(f"[slam] K1-K5 launches on the SLAM, vision and control paths: "
+          f"{slam_launches}; these phases took "
+          f"{time.perf_counter() - t_slam:.2f} s ("
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+          + f"; {waited:.2f} s waiting for their CPU references)",
+          flush=True)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
     timed["banded_matvec"].update(k3_fleet_times(k3b))
@@ -3753,6 +4958,7 @@ def smoke(refs) -> int:
     for k, key in zip(kernels, ("factorize", "substitute", "banded_matvec",
                                 "assemble_b1", "assemble_batch")):
         k["filters_launches"] = filter_launches[key]
+        k["slam_launches"] = slam_launches[key]
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]

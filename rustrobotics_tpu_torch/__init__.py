@@ -14,12 +14,18 @@ state and MVN (``utils``), the motion and measurement models (``models``),
 EKF / UKF / PF / EIF / histogram filters, the banked fleet filters and the
 parallel Kalman scan (``localization``), the UTIAS loader (``data``) and
 both localization entry points (``localization.simulation.run_simulation``
-and ``localization.landmark_replay.run_utias_localization[_fleet]``). The
-banded assembly, factorization and substitution, and the block-banded
+and ``localization.landmark_replay.run_utias_localization[_fleet]``); the
+SLAM families in ``mapping``: ICP, occupancy grids, the scan-matching
+pipeline with loop closures, EKF-SLAM (known and unknown correspondences,
+Schmidt updates), FastSLAM 1.0 / 2.0 and the SLAM-course replays
+(``mapping.slam_replay``); camera geometry (``vision``: projection, DLT,
+Zhang calibration and radial distortion, triangulation, P3P and RANSAC
+PnP, bundle adjustment) and control (``control``: LQR, LQG, the inverted
+pendulum). The banded assembly, factorization and substitution, and the block-banded
 SpMV, are hand-written CUDA kernels for Hopper
 (``ops.band_assemble_kernels``, ``ops.band_chol_kernels``,
-``ops.banded_kernels``; sources in ``csrc/``); the filters run no kernel of
-their own.
+``ops.banded_kernels``; sources in ``csrc/``); the filters, the SLAM
+families, vision and control run no kernel of their own.
 
 Entry points take ``device=None`` and then run on ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions on the CPU.

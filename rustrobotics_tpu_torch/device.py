@@ -27,8 +27,10 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
         if device is None and dtype is None:
             return x
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype,
-                           device=resolve_device(device))
+    arr = np.asarray(x)
+    if not arr.flags.writeable:  # a read-only view (a JAX array's, say)
+        arr = arr.copy()
+    return torch.as_tensor(arr, dtype=dtype, device=resolve_device(device))
 
 
 def tensor_fields(obj, *names):
