@@ -180,13 +180,31 @@ Phases; any failure ends the script with a non-zero exit code:
    w. control: the pendulum's DARE against scipy, the LQR closed loop,
       simulate_inverted_pendulum's settling (f32, f64), an LQG rollout of
       LQG_STEPS steps in f64 against the CPU on the same draws;
+   the distributed tier and the measurement layer (none of K1-K5 runs on
+   them; the counters are printed around the parallel phase):
+   x. parallel: an NCCL process group of world size 1 (one H100: NCCL
+      takes a card a rank); distributed_optimize GN PAR_GN_ITERS and LM
+      PAR_LM_ITERS on corridor-1728 in f64 (cg_tol 1e-10) held to GN_CHI2
+      and to the single-device optimize(backend="cg") runs; both sharded
+      PF steps on PF_PARTICLES particles, PF_STEPS steps: gather and
+      bounded equal to a single-device systematic resampling on the same
+      draws in f64 (in f32 within PF_F32_FLIP_SHARE of the rows), 0 ring
+      rounds; s an iteration, PCG rounds a solve, steps/s and
+      Mparticles/s (f32) printed;
+   y. aux: utils.devtime.time_scalar_program against CUDA events on one
+      program (AUX_TIMING_RTOL), utils.debug.checked catching a NaN made
+      on the card, a checkpoint of card tensors restored on the card;
+   phases v and s also feed the repaired non-finite paths: one NaN pixel
+   in the VIS_TRI_POINTS triangulation (its point NaN, the rest as the
+   clean run's) and ICP with a NaN point (R, t, rmse NaN, no error);
 5. times from CUDA events: each kernel, its plain version and a library
    yardstick, each beside its bound, as device time a call with the calls
    queued behind a sleep kernel (K1's and K2's back to back, L2 warm as
    in the solve; K3's, K4's and K5's with L2 flushed before each call, as
    their bounds count every byte through HBM; their L2-warm times are
    printed beside them); the stages of one GN iteration
-   of each main path; GN iterations/s end to end for each, and the
+   of each main path; GN iterations/s end to end for each (and the
+   banded-kernel GN's MFU from roofline.pgo_iteration_flops), and the
    fleets' graph-iterations/s against one graph's; K1, K2, K4 and K5 again
    at sphere-2500's kb = 384;
 6. trace: one GN run of each main path under torch.profiler, device time
@@ -196,8 +214,9 @@ Phases; any failure ends the script with a non-zero exit code:
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
    under *_b8 keys; K1, K2 and K4 with the launches of phases j, k and m
    under bootstrap_launches, posegraph_launches and frontend_launches,
-   and every kernel with filters_launches and slam_launches, 0: the
-   filter, SLAM, vision and control phases run none),
+   and every kernel with filters_launches, slam_launches and
+   parallel_launches, 0: the filter, SLAM, vision, control and parallel
+   phases run none),
    then the contract line {"ok": true, "device": {...}}
    last.
 """
@@ -214,10 +233,6 @@ import sys
 import time
 
 import numpy as np
-
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_HBM_BYTES = 3.35e12
 
 # f64 χ² of corridor-1728 (banded-direct, tolerance 0), from the JAX
 # package on the CPU; the port's f64 run reproduces them.
@@ -465,6 +480,42 @@ SLAM_TOL = {
 }
 
 
+# [parallel]: the edge-sharded GN on an NCCL group of world size 1
+# (corridor-1728, f64, JAX's cg_tol 1e-10) and the sharded PF at
+# benchmarks.bench_pf_sharded's size. The GN's χ² is held to GN_CHI2 and
+# to the single-device optimize(backend="cg") f64 trace within PAR_RTOL
+# (both PCG to 1e-10: the traces part by the sums' order), the poses
+# within PAR_POSE_TOL m; a χ² below PAR_CHI2_FLOOR x errors[0] is
+# rounding and compared at that floor.
+PAR_GN_ITERS = 6
+PAR_LM_ITERS = 4
+PAR_RTOL = 1e-6
+PAR_CHI2_FLOOR = 1e-9
+PAR_POSE_TOL = 1e-6
+PF_PARTICLES = 1_048_576
+PF_STEPS = 5
+PF_SEED = 0
+# f32 rows of the sharded PF off the single-device resampling: the card's
+# cumsum is not bitwise reproducible, and two runs of one gather step
+# differed in 16,081 and 25,456 of 1,048,576 rows (1.5% and 2.4%; NVIDIA
+# H100 80GB HBM3, 700 W); a wrong grid or gather moves nearly every row.
+# f64 is held exactly
+PF_F32_FLIP_SHARE = 0.1
+
+# [aux]: time_scalar_program against CUDA events on the same program
+AUX_TIMING_RTOL = 0.2
+AUX_ELEMS = 1 << 25  # 128 MB of f32 a pass
+AUX_REPS = 100
+
+# the repair of non-finite input: the point given a NaN pixel in
+# [vision]'s triangulation, the point given NaN in [scan-matching]'s ICP
+VIS_NAN_POINT = 4321
+SCAN_NAN_POINT = 7
+# the other points against the clean run: equal but for the batched SVD's
+# rounding, should the card's batch solver couple the problems' sweeps
+VIS_NAN_TOL = 1e-5
+
+
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -556,6 +607,13 @@ def read_counts():
 
 
 def bound_ms(nbytes, flops):
+    """(the least ms the card could take, "bytes" or "operations"),
+    from the H100's peaks in the port's roofline."""
+    from rustrobotics_tpu_torch.roofline import (
+        PEAK_F32_FLOPS,
+        PEAK_HBM_BYTES,
+    )
+
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1152,6 +1210,11 @@ def times(p, gn, g32, name="corridor-1728"):
         band_assemble_kernel,
     )
     from rustrobotics_tpu_torch.ops.band_chol import _prepare_blocks
+    from rustrobotics_tpu_torch.roofline import (
+        PEAK_F32,
+        mfu,
+        pgo_iteration_flops,
+    )
 
     nb, kb, n = p["bl"].nb, p["bl"].kb, p["bl"].n
     out = {}
@@ -1239,6 +1302,12 @@ def times(p, gn, g32, name="corridor-1728"):
           f"({wall / 10 * 1e3:.4f} ms/iteration, median of 5 runs of 10); "
           f"the solve's bound alone is {k1_bound + k2_bound:.4f} ms/iteration",
           flush=True)
+    flops = pgo_iteration_flops(g32, "banded-kernel", bl)
+    print(f"[times] GN banded-kernel, {name} f32: roofline."
+          f"pgo_iteration_flops {flops:.6g} FLOP an iteration, "
+          f"{flops * it_s / 1e12:.6f} TFLOP/s, MFU "
+          f"{mfu(flops * it_s, 'cuda'):.6g} of PEAK_F32['cuda'] "
+          f"({PEAK_F32['cuda']:.4g} FLOP/s)", flush=True)
     return out
 
 
@@ -3956,6 +4025,15 @@ def scan_phase(device, refs):
     truth["g"] = torch.tensor(gt)
     pts, _ = sm.scan_to_points(sc[:2], an, SCAN_MAX_RANGE)
     icp(pts[1], pts[0], 15, 0.9)  # warm-up
+    # non-finite input: a NaN point makes the alignment NaN, not an error
+    src = pts[1].clone()
+    src[SCAN_NAN_POINT] = float("nan")
+    nan_out = [icp(src, pts[0], 15, q) for q in (None, 0.9)]
+    all_nan = all(bool(torch.isnan(o).all()) for out in nan_out for o in out)
+    print(f"[scan-matching] ICP with a NaN point (with and without "
+          f"reject_quantile 0.9): R, t and rmse all NaN {all_nan}",
+          flush=True)
+    require(all_nan, "[scan-matching] ICP with a NaN point returns NaN")
     _, wall = _timed(lambda: [icp(pts[1], pts[0], 15, 0.9)
                               for _ in range(10)], device)
     ms_icp = wall / 10 * 1e3
@@ -4526,6 +4604,19 @@ def fastslam_sim(steps, num_landmarks=6, seed=0, unoise=(0.2, 0.12),
     return lms, events, dt
 
 
+def vision_triangulate(ps, obs, device):
+    """triangulate in f32 on the card, as numpy."""
+    import torch
+
+    from rustrobotics_tpu_torch import vision
+
+    def tt(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device)
+
+    return vision.triangulate(tt(ps), tt(obs)).cpu().numpy()
+
+
 def vision_phase(device, refs):
     """Phase vision: vision_runs in f32 and f64 on the card (ms a call;
     the f64 results against the CPU's, SLAM_TOL["vision_f64"] relative to
@@ -4606,6 +4697,21 @@ def vision_phase(device, refs):
             "BA χ² down by 1e-3, RMS < 0.2 px, camera 0 fixed (f32)")
     require(worst <= SLAM_TOL["vision_f64"],
             f"vision f64 card within {SLAM_TOL['vision_f64']} of CPU")
+    # non-finite input: one NaN pixel leaves the rest of the cloud as it was
+    ps, obs = scenes["tri"][:2]
+    bad = obs.copy()
+    bad[VIS_NAN_POINT, 1, 0] = np.nan
+    clean, nan = (vision_triangulate(ps, o, device) for o in (obs, bad))
+    rest = np.delete(np.arange(len(obs)), VIS_NAN_POINT)
+    rest_diff = float(np.abs(nan[rest] - clean[rest]).max())
+    print(f"[vision] triangulation with one NaN pixel (point "
+          f"{VIS_NAN_POINT}), f32: its row NaN "
+          f"{bool(np.isnan(nan[VIS_NAN_POINT]).all())}, the other "
+          f"{len(rest)} points against the clean run max |diff| "
+          f"{rest_diff:.3g}", flush=True)
+    require(np.isnan(nan[VIS_NAN_POINT]).all() and rest_diff <= VIS_NAN_TOL,
+            "[vision] one NaN pixel: its point NaN, the others equal to the "
+            "clean run")
     return dict(ms={k: v * 1e3 for k, v in secs.items()},
                 ba_rms=rms.tolist())
 
@@ -4665,6 +4771,253 @@ K12_GROUPS = {"K4 band_assemble": "band_assemble",
 FLEET_GROUPS = {("K5" + k[2:] if k.startswith("K4") else k): v
                 for k, v in K12_GROUPS.items()}
 K3_GROUPS = {"K3 banded_matvec": "banded_matvec", "other": ""}
+
+
+def _trace_close(got, want, floor):
+    """max over a χ² trace of |got - want| / max(|want|, floor)."""
+    return max(abs(a - b) / max(abs(b), floor) for a, b in zip(got, want))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_phase(device):
+    """Phase parallel: the distributed tier on an NCCL process group of
+    world size 1 (one H100; NCCL takes one card a rank), destroyed at the
+    end. distributed_optimize GN PAR_GN_ITERS and LM PAR_LM_ITERS on
+    corridor-1728 in f64 at JAX's cg_tol 1e-10, held to GN_CHI2 and to the
+    single-device optimize(backend="cg") runs (PAR_RTOL, PAR_POSE_TOL);
+    both sharded PF steps on PF_PARTICLES particles of the SimpleProblem
+    models, PF_STEPS steps, 0 ring rounds: in f64 gather and bounded equal
+    a single-device systematic resampling of the same propagated cloud on
+    the same draws, in f32 all but PF_F32_FLIP_SHARE of the rows (timed
+    in f32).
+    s per GN iteration, PCG rounds per solve, steps/s and Mparticles/s
+    printed. Returns the K1-K5 counts of the phase (0 expected)."""
+    import torch
+    import torch.distributed as dist
+
+    from rustrobotics_tpu_torch.localization.pf import ParticleFilter
+    from rustrobotics_tpu_torch.mapping.pgo import optimize
+    from rustrobotics_tpu_torch.models.measurement import (
+        SimpleProblemMeasurementModel,
+    )
+    from rustrobotics_tpu_torch.models.motion import SimpleProblemMotionModel
+    from rustrobotics_tpu_torch.parallel import (
+        distributed_optimize,
+        make_mesh,
+    )
+    from rustrobotics_tpu_torch.parallel.pf_sharded import (
+        make_sharded_pf_step,
+        make_sharded_pf_step_bounded,
+    )
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        g64 = corridor(1728, device)
+        reset_counts()
+        runs = {}
+        for solver, iters in (("gauss_newton", PAR_GN_ITERS),
+                              ("levenberg_marquardt", PAR_LM_ITERS)):
+            with recorded_rounds() as rounds:
+                (g, errors, _), wall = _timed(
+                    lambda: distributed_optimize(
+                        mesh, g64, num_iterations=iters, solver=solver,
+                        tolerance=0.0), device)
+            runs[solver] = (g, errors, wall, list(rounds))
+        counts = read_counts()
+        refs = {}
+        for solver, iters in (("gauss_newton", PAR_GN_ITERS),
+                              ("levenberg_marquardt", PAR_LM_ITERS)):
+            res, wall = _timed(lambda: optimize(
+                g64, num_iterations=iters, solver=solver, backend="cg",
+                tolerance=0.0, device=device), device)
+            refs[solver] = (res, wall)
+        for solver, (g, errors, wall, rounds) in runs.items():
+            res, wall_ref = refs[solver]
+            floor = PAR_CHI2_FLOOR * errors[0]
+            rel = _trace_close(errors, res.errors, floor)
+            pose = _maxdiff(g.poses2, res.graph.poses2, heading=2)
+            iters = len(errors) - 1
+            print(f"[parallel] distributed_optimize {solver}, corridor-1728 "
+                  f"f64, NCCL world size 1: {wall / iters:.4f} s an "
+                  f"iteration (single-device optimize cg "
+                  f"{wall_ref / iters:.4f}); PCG rounds a solve {rounds}; "
+                  f"χ² {[round(e, 6) for e in errors]}; against the "
+                  f"single-device cg trace {rel:.3g} relative, poses "
+                  f"{pose:.3g}", flush=True)
+            require(rel <= PAR_RTOL, f"[parallel] {solver} χ² trace within "
+                                     f"{PAR_RTOL} of optimize(backend='cg')")
+            require(pose <= PAR_POSE_TOL, f"[parallel] {solver} poses within "
+                                          f"{PAR_POSE_TOL} of optimize(cg)")
+        gn_errors = runs["gauss_newton"][1]
+        for got, want in zip(gn_errors[:2], GN_CHI2):
+            require(abs(got - want) <= PAR_RTOL * want,
+                    f"[parallel] GN χ² {got} within {PAR_RTOL} of the JAX "
+                    f"f64 anchor {want}")
+        if PAR_GN_ITERS < 10:
+            print(f"[parallel] GN runs {PAR_GN_ITERS} iterations (not 10): "
+                  f"every solve is PCG to 1e-10 in f64, whose rounds "
+                  f"(above) set the phase's time", flush=True)
+
+        # the sharded PF at the JAX benchmark's size
+        def pf_of(dtype):
+            return ParticleFilter(
+                r=torch.eye(4, dtype=dtype, device=device) * 0.01,
+                q=torch.eye(2, dtype=dtype, device=device) * 0.1,
+                motion_model=SimpleProblemMotionModel.create(),
+                measurement_model=SimpleProblemMeasurementModel.create(),
+                resampling="systematic")
+
+        cloud0 = torch.tensor(
+            np.random.default_rng(PF_SEED).normal(
+                size=(PF_PARTICLES, 4)).astype(np.float32) * 0.5,
+            device=device)
+        noise_gen = torch.Generator(device).manual_seed(PF_SEED)
+        u0_gen = torch.Generator(device).manual_seed(PF_SEED + 1)
+        reset_counts()
+        check = {}
+        for dtype in (torch.float64, torch.float32):
+            pf = pf_of(dtype)
+            u = torch.tensor([1.0, 0.1], dtype=dtype, device=device)
+            z = torch.tensor([0.12, 0.03], dtype=dtype, device=device)
+            gather = make_sharded_pf_step(mesh, pf, PF_PARTICLES)
+            bounded = make_sharded_pf_step_bounded(mesh, pf, PF_PARTICLES)
+            cloud, worst, flips, self_flips, max_rounds = (
+                cloud0.to(dtype), 0.0, 0, 0, 0)
+            for _ in range(PF_STEPS):
+                noise = torch.randn(cloud.shape, generator=noise_gen,
+                                    dtype=dtype, device=device)
+                u0 = torch.rand((), generator=u0_gen, dtype=dtype,
+                                device=device)
+                out_g = gather._step(noise, u0, cloud, u, z, 0.1)
+                out_b, rounds = bounded._step(noise, u0, cloud, u, z, 0.1)
+                # single-device systematic resampling of the same
+                # propagated cloud on the same draws
+                pred, logw = pf._propagate_weigh(cloud, u, z, 0.1, noise)
+                w = torch.exp(logw - torch.max(logw))
+                draws = (torch.arange(PF_PARTICLES, dtype=dtype,
+                                      device=device)
+                         + u0) / PF_PARTICLES * torch.sum(w)
+                idx = torch.clamp(torch.searchsorted(torch.cumsum(w, 0),
+                                                     draws),
+                                  0, PF_PARTICLES - 1)
+                ref = pred[idx]
+                worst = max(worst, _maxdiff(out_g, ref),
+                            _maxdiff(out_b, out_g))
+                flips = max(flips, int((out_g != ref).any(-1).sum()),
+                            int((out_b != ref).any(-1).sum()))
+                again = gather._step(noise, u0, cloud, u, z, 0.1)
+                self_flips = max(self_flips,
+                                 int((again != out_g).any(-1).sum()))
+                max_rounds = max(max_rounds, rounds)
+                cloud = out_g
+            check[dtype] = (worst, flips, self_flips, max_rounds)
+        counts = {k: counts[k] + v for k, v in read_counts().items()}
+        walls = {}
+        pf = pf_of(torch.float32)
+        u = torch.tensor([1.0, 0.1], dtype=torch.float32, device=device)
+        z = torch.tensor([0.12, 0.03], dtype=torch.float32, device=device)
+        for name, make in (("gather", make_sharded_pf_step),
+                           ("bounded", make_sharded_pf_step_bounded)):
+            step = make(mesh, pf, PF_PARTICLES)
+
+            def run(step=step):
+                c = cloud0
+                for _ in range(PF_STEPS):
+                    c = step(noise_gen, u0_gen, c, u, z, 0.1)
+                    c = c[0] if isinstance(c, tuple) else c
+                return c
+            run()
+            _, walls[name] = _timed(run, device)
+        w64, w32 = check[torch.float64], check[torch.float32]
+        print(f"[parallel] sharded PF, {PF_PARTICLES} particles, NCCL "
+              f"world size 1, {PF_STEPS} steps, f32: "
+              + ", ".join(f"{k} {PF_STEPS / v:.4f} steps/s "
+                          f"({PF_STEPS * PF_PARTICLES / v / 1e6:.4f} "
+                          f"Mparticles/s)" for k, v in walls.items())
+              + f"; ring rounds {max(w64[3], w32[3])}. Against the "
+                f"single-device searchsorted resampling on the same draws: "
+                f"f64 gather and bounded differ by {w64[0]:.3g} ({w64[1]} "
+                f"rows); f32 {w32[1]} of {PF_PARTICLES} rows differ at most "
+                f"a step, as do {w32[2]} between two runs of the same gather "
+                f"step (the card's cumsum is not bitwise reproducible, and "
+                f"an f32 draw within its rounding of a cumulative weight "
+                f"picks the neighbour)", flush=True)
+        require(w64[0] == 0.0, "[parallel] sharded PF clouds (f64) equal "
+                               "the single-device resampling on the same "
+                               "draws")
+        require(w32[1] <= PF_F32_FLIP_SHARE * PF_PARTICLES,
+                f"[parallel] sharded PF (f32): at most {PF_F32_FLIP_SHARE} "
+                f"of the rows off the single-device resampling")
+        require(max(w64[3], w32[3]) == 0,
+                "[parallel] bounded PF: 0 ring rounds at world size 1")
+        print(f"[parallel] K1-K5 launches in this phase: {counts}; "
+              f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def aux_phase(device, g32):
+    """Phase aux: the measurement layer on the card. time_scalar_program
+    on a scalar program (AUX_REPS passes over AUX_ELEMS floats) within
+    AUX_TIMING_RTOL of the CUDA-event time of the same program; checked
+    catches a NaN made on the card; a checkpoint of a card graph restores
+    on the card."""
+    import tempfile
+
+    import torch
+
+    from rustrobotics_tpu_torch.utils import devtime
+    from rustrobotics_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from rustrobotics_tpu_torch.utils.debug import checked
+
+    x = torch.rand(AUX_ELEMS, device=device)
+
+    def prog(v):
+        for _ in range(AUX_REPS):
+            v = v * 0.999 + 0.001
+        return v.sum()
+
+    rtt = devtime.scalar_fetch_rtt()
+    per = devtime.time_scalar_program(prog, x, reps=AUX_REPS, rtt=rtt)
+    event_ms = cuda_ms(lambda: prog(x), repeats=5, warmup=1) / AUX_REPS
+    rel = abs(per * 1e3 - event_ms) / event_ms
+    print(f"[aux] time_scalar_program {per * 1e3:.6f} ms a pass (scalar "
+          f"fetch RTT {rtt * 1e6:.2f} µs) against CUDA events "
+          f"{event_ms:.6f} ms: {rel:.3g} apart", flush=True)
+    require(rel <= AUX_TIMING_RTOL, f"[aux] time_scalar_program within "
+                                    f"{AUX_TIMING_RTOL} of CUDA events")
+    try:
+        checked(lambda v: torch.log(v - 2.0))(x)
+        caught = None
+    except FloatingPointError as err:
+        caught = str(err)
+    print(f"[aux] checked on the card: {caught}", flush=True)
+    require(caught is not None and "nan" in caught,
+            "[aux] checked catches a NaN made on the card")
+    with tempfile.TemporaryDirectory() as d:
+        path = save_checkpoint(f"{d}/snap.npz", g32, step=3)
+        back, step = restore_checkpoint(path, g32)
+    same = all(torch.equal(getattr(back, f), getattr(g32, f))
+               for f in ("poses2", "landmarks2", "pp_z", "pp_from"))
+    print(f"[aux] checkpoint of corridor-1728 from the card restores on "
+          f"{back.poses2.device}: step {step}, equal {same}", flush=True)
+    require(same and step == 3 and back.poses2.is_cuda,
+            "[aux] a checkpoint of card tensors restores")
 
 
 def busy_window(events, dev):
@@ -4843,6 +5196,9 @@ def smoke(refs, slam_refs) -> int:
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
           + f"; {waited:.2f} s waiting for their CPU references)",
           flush=True)
+    # the distributed tier and the measurement layer (this slice)
+    par_launches = parallel_phase(device)
+    aux_phase(device, g32)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
     timed["banded_matvec"].update(k3_fleet_times(k3b))
@@ -4959,6 +5315,7 @@ def smoke(refs, slam_refs) -> int:
                                 "assemble_b1", "assemble_batch")):
         k["filters_launches"] = filter_launches[key]
         k["slam_launches"] = slam_launches[key]
+        k["parallel_launches"] = par_launches[key]
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]

@@ -27,9 +27,19 @@ SpMV, are hand-written CUDA kernels for Hopper
 ``ops.banded_kernels``; sources in ``csrc/``); the filters, the SLAM
 families, vision and control run no kernel of their own.
 
+The measurement layer: the configuration dataclasses (``config``), card
+timing (``utils.devtime``), phase timers and optimizer metrics
+(``utils.metrics``), FLOP models and MFU against the H100's peak
+(``roofline``), NaN sanitizers (``utils.debug``) and checkpoints in the
+JAX package's file format (``utils.checkpoint``). The distributed tier
+(``parallel``): edge-sharded Gauss-Newton / Levenberg-Marquardt and the
+sharded particle filter over ``torch.distributed`` process groups.
+
 Entry points take ``device=None`` and then run on ``"cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch versions on the CPU.
 """
+
+__version__ = "0.1.0"
 
 import torch
 
@@ -38,3 +48,5 @@ import torch
 # normal equations into NaN.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from rustrobotics_tpu_torch.utils.state import GaussianState  # noqa: E402,F401

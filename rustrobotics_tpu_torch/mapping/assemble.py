@@ -102,6 +102,28 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+def block_maps(p2, l2, p3, n: int):
+    """Block-Jacobi maps from the nodes' dof offsets (numpy): each dof's
+    node block and place in it, (n,) each, the identity padding of the
+    blocks narrower than 6 dof (n_blocks, 6, 6), and n_blocks."""
+    dof_block = np.zeros(n, np.int32)
+    dof_pos = np.zeros(n, np.int32)
+    sizes = []
+    bid = 0
+    for offs, size in [(p2, 3), (l2, 2), (p3, 6)]:
+        for o in offs:
+            dof_block[o:o + size] = bid
+            dof_pos[o:o + size] = np.arange(size)
+            sizes.append(size)
+            bid += 1
+    n_blocks = max(bid, 1)
+    pad_eye = np.zeros((n_blocks, 6, 6))
+    for k, size in enumerate(sizes):
+        idx = np.arange(size, 6)
+        pad_eye[k, idx, idx] = 1.0
+    return dof_block, dof_pos, pad_eye, n_blocks
+
+
 def build_layout(graph: PoseGraphData) -> SystemLayout:
     p2 = _np(graph.pose2_offsets)
     l2 = _np(graph.lm2_offsets)
@@ -166,22 +188,7 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
     nbr[uniq_r, slot] = uniq_c
     ell_pos = uniq_r.astype(np.int64) * width + slot
 
-    # block-Jacobi maps
-    dof_block = np.zeros(n, np.int32)
-    dof_pos = np.zeros(n, np.int32)
-    sizes = []
-    bid = 0
-    for offs, size in [(p2, 3), (l2, 2), (p3, 6)]:
-        for o in offs:
-            dof_block[o:o + size] = bid
-            dof_pos[o:o + size] = np.arange(size)
-            sizes.append(size)
-            bid += 1
-    n_blocks = max(bid, 1)
-    pad_eye = np.zeros((n_blocks, 6, 6))
-    for k, size in enumerate(sizes):
-        idx = np.arange(size, 6)
-        pad_eye[k, idx, idx] = 1.0
+    dof_block, dof_pos, pad_eye, n_blocks = block_maps(p2, l2, p3, n)
 
     # Schur split maps
     dof_is_lm = np.zeros(n, bool)

@@ -20,13 +20,16 @@ from __future__ import annotations
 import torch
 
 from rustrobotics_tpu_torch.device import as_tensor
+from rustrobotics_tpu_torch.utils.linalg import svd
 
 
 def rigid_align(src, dst, weights=None):
     """Closed-form weighted rigid alignment (Kabsch/Umeyama): returns
     (R, t) minimizing sum_i w_i ||R src_i + t - dst_i||^2.
 
-    src, dst: (..., N, D); weights: optional (..., N).
+    src, dst: (..., N, D); weights: optional (..., N). A problem with a
+    non-finite point (a zero weight does not hide it: 0·NaN is NaN) gets R
+    and t NaN, as in JAX.
     """
     n, d = src.shape[-2:]
     if weights is None:
@@ -38,7 +41,7 @@ def rigid_align(src, dst, weights=None):
     sc = src - mu_s[..., None, :]
     dc = dst - mu_d[..., None, :]
     cov = (dc * w[..., None]).mT @ sc  # (..., D, D)
-    u, _, vt = torch.linalg.svd(cov)
+    u, _, vt = svd(cov)
     # proper rotation: flip the last singular direction if det < 0
     det = _det(u @ vt)
     s = torch.cat([torch.ones(det.shape + (d - 1,), dtype=src.dtype,

@@ -759,7 +759,7 @@ def marginal_variances(graph: PoseGraphData, robust: str | None = None,
     if bl is not None:
         return marginal_covariances(bl, vals, **chain)
     h = dense_hessian(layout, vals)
-    return torch.diagonal(torch.linalg.inv(h), dim1=-2, dim2=-1)
+    return torch.diagonal(torch.linalg.inv_ex(h).inverse, dim1=-2, dim2=-1)
 
 
 def pose_covariances(graph: PoseGraphData, robust: str | None = None,
@@ -777,7 +777,7 @@ def pose_covariances(graph: PoseGraphData, robust: str | None = None,
     if bl is not None:
         return marginal_node_blocks(bl, vals, offs, np.full(len(offs), 3),
                                     pad_size=3, **chain)
-    hinv = torch.linalg.inv(dense_hessian(layout, vals))
+    hinv = torch.linalg.inv_ex(dense_hessian(layout, vals)).inverse
     idx = torch.as_tensor(offs[:, None] + np.arange(3)[None, :],
                           device=vals.device)                  # (N2, 3)
     return hinv[..., idx[:, :, None], idx[:, None, :]]

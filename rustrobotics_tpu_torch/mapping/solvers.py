@@ -137,7 +137,7 @@ def solve_schur(layout: SystemLayout, vals, b):
 
     bp = b[..., as_index(pose_dofs, dev)]
     bl = b[..., as_index(lm_dofs, dev)].reshape(batch + (n_lm, 2))
-    h_ll_inv = torch.linalg.inv(h_ll)
+    h_ll_inv = torch.linalg.inv_ex(h_ll).inverse  # singular: inf/NaN
     # W = Hll^-1 Hlp, (..., L, 2, P)
     w = h_ll_inv @ h_pl.mT.reshape(batch + (n_lm, 2, np_dof))
     s = h_pp - h_pl @ w.reshape(batch + (nl_dof, np_dof))
@@ -329,13 +329,20 @@ def make_block_jacobi(layout: SystemLayout, vals):
         -1, entry, torch.where(br == bc, vals, 0.0))
     blocks = blocks.view(batch + (layout.n_blocks, 6, 6)) + torch.as_tensor(
         layout.pad_eye, dtype=vals.dtype, device=dev)
-    binv = torch.linalg.inv(blocks)
-    slot = dof_block * 6 + dof_pos  # each dof's place in (n_blocks, 6)
+    return block_precond(blocks, dof_block * 6 + dof_pos)
+
+
+def block_precond(blocks, slot):
+    """Apply of the inverses of (..., n_blocks, 6, 6) diagonal blocks;
+    ``slot`` (n,) is each dof's place in (n_blocks, 6). A singular block's
+    inverse is inf/NaN, as ``jnp.linalg.inv`` gives it."""
+    n_blocks = blocks.shape[-3]
+    binv = torch.linalg.inv_ex(blocks).inverse
 
     def precond(r):
-        rb = r.new_zeros(r.shape[:-1] + (layout.n_blocks * 6,)).index_copy_(
+        rb = r.new_zeros(r.shape[:-1] + (n_blocks * 6,)).index_copy_(
             -1, slot, r)
-        yb = binv @ rb.view(r.shape[:-1] + (layout.n_blocks, 6, 1))
+        yb = binv @ rb.view(r.shape[:-1] + (n_blocks, 6, 1))
         return yb.view(r.shape[:-1] + (-1,))[..., slot]
 
     return precond

@@ -3,7 +3,8 @@
 
 Every solver is a normalized homogeneous linear system closed by an SVD;
 Zhang's homographies are one batch over the views. The radial-distortion
-stage is one linear least-squares solve.
+stage is one linear least-squares solve. A non-finite input gives NaN
+where JAX's gives it (``utils.linalg``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import math
 
 import torch
 
+from rustrobotics_tpu_torch.utils.linalg import lstsq, svd
 from rustrobotics_tpu_torch.vision.cameras import decompose_projection
 
 
@@ -44,7 +46,7 @@ def _normalize_3d(x):
 def _null_vector(a):
     """The right singular vector of the smallest singular value (the last
     row of Vᴴ), batched."""
-    return torch.linalg.svd(a, full_matrices=True)[2][..., -1, :]
+    return svd(a, full_matrices=True)[2][..., -1, :]
 
 
 def dlt_camera(points3d, points2d):
@@ -137,7 +139,7 @@ def zhang_calibrate(object_points, image_points):
     r3 = torch.linalg.cross(r1, r2)
     r_approx = torch.stack([r1, r2, r3], dim=-1)
     # project onto SO(3)
-    u, _, vt = torch.linalg.svd(r_approx)
+    u, _, vt = svd(r_approx)
     return k, u @ vt, ts, hs
 
 
@@ -172,7 +174,7 @@ def estimate_radial_distortion(k, rs, ts, object_points, image_points):
     # solves by QR ("gels") only, which assumes full column rank. This
     # system is tall ((2VN, 2)) and of full rank for any target off the
     # optical axis, so QR reaches the same least-squares solution.
-    return torch.linalg.lstsq(a, b[:, None]).solution[:, 0]  # (k1, k2)
+    return lstsq(a, b[:, None])[:, 0]  # (k1, k2)
 
 
 def distort_points(k, k1, k2, uv):

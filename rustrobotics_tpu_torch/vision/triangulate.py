@@ -5,12 +5,16 @@ Each observation (P_i, x_i) contributes two homogeneous constraints on the
 3D point X: x u_i p3_i - p1_i and y v_i p3_i - p2_i. Stacking all views
 gives A X_h = 0, solved by the smallest right singular vector; a cloud of
 N points is one batched SVD of (N, 2V, 4) systems. That vector's sign is
-arbitrary, and ``xh[:3] / xh[3]`` cancels it.
+arbitrary, and ``xh[:3] / xh[3]`` cancels it. A point whose system holds
+a NaN (one pixel, in any view: the mask multiplies and 0·NaN is NaN, as
+in JAX) comes out NaN and the rest of the cloud as without it.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rustrobotics_tpu_torch.utils.linalg import svd
 
 
 def _triangulate_one(ps, obs, mask):
@@ -22,7 +26,7 @@ def _triangulate_one(ps, obs, mask):
     ], dim=-2)  # (..., 2V, 4)
     w = mask.to(a.dtype).repeat_interleave(2, dim=-1)
     a = a * w[..., None]
-    _, _, vt = torch.linalg.svd(a, full_matrices=True)
+    _, _, vt = svd(a, full_matrices=True)
     xh = vt[..., -1, :]
     return xh[..., :3] / xh[..., 3:4]
 
