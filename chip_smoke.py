@@ -108,11 +108,19 @@ Phases; any failure ends the script with a non-zero exit code:
       graph by build_pose_graph_from_slam_course, LM FE_ITERS on
       banded-kernel in f32: a band plan; errors[-1] < errors[0] / 2, as
       the JAX package's test holds it, and the final graph's χ² within
-      FE_FINAL_RTOL of banded-direct's; K4, K1 and K2 launch; on K4's band
-      of banded-direct's final graph at λ = FE_BREAK_LAM (near singular in
-      f32: whether the f64 chain breaks down on it is printed), K1 keeps
-      every pivot, as the plain chain does, within FE_K1_TOL of it; landmark
-      errors and LM it/s printed;
+      FE_FINAL_RTOL of banded-direct's; K4, K1 and K2 launch; landmark
+      errors and LM it/s printed. K1's pivots on a band that does not move:
+      banded-direct LM FE_ITERS in f64 on the CPU in one thread
+      (frontend_gate_graph, in a third worker process from the start: the
+      same bits every run), cast to f32, through system_values and K4
+      on the card at λ = FE_BREAK_LAM, built twice with equal SHA-256;
+      that band is indefinite as f32 rounds it, so the gate (pivot_gate)
+      holds K1 and the plain chain to every pivot, and K1 within
+      FE_K1_TOL of the plain chain, on the block rows before r64, the
+      first row where the f64 chain on the same f32 band breaks down (r64
+      >= 1 required; the rows from r64 on are printed); then the same on
+      that graph's band at λ = LM_LAMBDA0, gated whole where the f64 chain
+      keeps every pivot;
    the filters, on a UTIAS MRCLE-shaped dataset from write_utias (15
    landmarks and 5 robots keyed by barcode, a 15 m x 8 m arena,
    groundtruth at 100 Hz, odometry at ~67 Hz, measurement groups of 1-6
@@ -194,6 +202,21 @@ Phases; any failure ends the script with a non-zero exit code:
    y. aux: utils.devtime.time_scalar_program against CUDA events on one
       program (AUX_TIMING_RTOL), utils.debug.checked catching a NaN made
       on the card, a checkpoint of card tensors restored on the card;
+   z. blocks: the map-block optimizer (parallel.pgo_blocks) on an NCCL
+      group of world size 1 (D = 1: no halo traffic): corridor-100k
+      (BLK_POSES poses, >= 100k dof) GN BLK_GN with Jacobi and Schwarz in
+      f64 (errors[-1] < errors[0] x BLK_DROP, finite) and in f32 at the
+      CLI's cg_tol; corridor-1728 f64 GN (single and classic CG), LM and
+      Schur held to optimize(backend="cg"); elastic (segments of
+      BLK_SEGMENT, interrupted and resumed) held to the GN run; s a GN
+      iteration, CG rounds a GN iteration, ms of the run a CG round,
+      comm_budget; one GN iteration under the profiler (device launches
+      a CG round, idle share); then cli: `python -m
+      rustrobotics_tpu_torch.cli pgo --distributed 1` on corridor-1728
+      with noisy measurements as a g2o file in a subprocess, its χ²
+      against the same command in-process and both against
+      optimize(backend="cg") on the same file, and `cli doctor`; K1-K5
+      launch 0 times in both;
    phases v and s also feed the repaired non-finite paths: one NaN pixel
    in the VIS_TRI_POINTS triangulation (its point NaN, the rest as the
    clean run's) and ICP with a NaN point (R, t, rmse NaN, no error);
@@ -214,9 +237,9 @@ Phases; any failure ends the script with a non-zero exit code:
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
    under *_b8 keys; K1, K2 and K4 with the launches of phases j, k and m
    under bootstrap_launches, posegraph_launches and frontend_launches,
-   and every kernel with filters_launches, slam_launches and
-   parallel_launches, 0: the filter, SLAM, vision, control and parallel
-   phases run none),
+   and every kernel with filters_launches, slam_launches,
+   parallel_launches, blocks_launches and cli_launches, 0: the filter,
+   SLAM, vision, control, parallel, blocks and cli phases run none),
    then the contract line {"ok": true, "device": {...}}
    last.
 """
@@ -392,6 +415,9 @@ FE_FINAL_RTOL = 1e-3
 # K1 against the plain chain on the front end's band at the damping where
 # an earlier K1 lost pivots (LM step 10: λ = 0.01 / 2^9): max|ldinv_kernel
 # L_plain - I| over the block rows read 2.3e-3 to 6.5e-3 on the H100.
+# That band is indefinite as f32 rounds it (the f64 chain on the f32 band
+# breaks down from some block row r64), and past r64 no factorization
+# exists for a chain to keep: pivot_gate holds the rows before it.
 FE_BREAK_LAM, FE_K1_TOL = 0.01 / 2 ** 9, 5e-2
 # The filters. filters-sim: run_simulation's episode (SIM_TIME s at dt
 # 0.1), the PF with SIM_PARTICLES particles, numpy draws from SIM_SEED;
@@ -506,6 +532,27 @@ PF_F32_FLIP_SHARE = 0.1
 AUX_TIMING_RTOL = 0.2
 AUX_ELEMS = 1 << 25  # 128 MB of f32 a pass
 AUX_REPS = 100
+
+# [blocks]: the map-block optimizer (parallel.pgo_blocks) on an NCCL group
+# of world size 1 (D = 1, h = 0: no point-to-point traffic). corridor-100k
+# is the JAX package's test_block_optimize_corridor_100k (34,000 poses,
+# 102,000 dof): GN BLK_GN, cg_tol BLK_CG_TOL, cg_maxiter BLK_CG_MAXITER
+# (inexact Newton), held to its criterion errors[-1] < errors[0] x
+# BLK_DROP, with Jacobi and with Schwarz (at D = 1 the local cyclic
+# reduction factors the whole band); in f32 at the CLI's cg_tol
+# BLK_F32_CG_TOL. corridor-1728 in f64 (cg_tol 1e-10, as [parallel]):
+# GN PAR_GN_ITERS (single and classic CG) and LM PAR_LM_ITERS held to
+# optimize(backend="cg") within PAR_RTOL / PAR_POSE_TOL, Schur and elastic
+# (segments of BLK_SEGMENT) to the GN run.
+BLK_POSES, BLK_GN, BLK_CG_TOL, BLK_CG_MAXITER = 34000, 8, 1e-8, 150
+BLK_DROP, BLK_F32_CG_TOL, BLK_SEGMENT = 1e-3, 1e-6, 2
+# [cli]: `python -m rustrobotics_tpu_torch.cli pgo --distributed 1` on
+# corridor-1728 with noisy measurements (noisy_corridor_spec, numpy seed
+# CLI_SEED) as a g2o file, f64, at most CLI_ITERS iterations, in a
+# subprocess against the same command run in-process, and both against
+# optimize(backend="cg") within PAR_RTOL; CLI_TIMEOUT s for each
+# subprocess
+CLI_ITERS, CLI_SEED, CLI_TIMEOUT = 6, 0, 300
 
 # the repair of non-finite input: the point given a NaN pixel in
 # [vision]'s triangulation, the point given NaN in [scan-matching]'s ICP
@@ -2830,11 +2877,12 @@ def frontend_dataset():
         return load_slam_course(tmp)
 
 
-def frontend_phase(device):
+def frontend_phase(device, gate):
     """Phase 4m: a synthetic SLAM-course log (write_slam_course) loaded,
     built into a pose graph by the front end and run through LM FE_ITERS
-    on banded-kernel in f32, against the same on banded-direct. Returns the
-    path's counts."""
+    on banded-kernel in f32, against the same on banded-direct; K1's pivot
+    gate on the band of ``gate`` (the pending frontend_gate_graph()).
+    Returns the path's counts."""
     import torch
 
     from rustrobotics_tpu_torch.mapping import (
@@ -2890,22 +2938,13 @@ def frontend_phase(device):
           f"{lm_err0.mean():.4f}, {lm_err0.max():.4f}); {FE_ITERS / wall:.4f} "
           f"LM it/s (median of 3 runs of {FE_ITERS}); launches {launches}; "
           f"plain band scatters {plain_calls[0]}", flush=True)
-    k1_bad, plain_bad, f64_bad, resid = frontend_k1_check(out_d, bl, device)
-    print(f"[frontend] K4's band of banded-direct's final graph at λ = "
-          f"{FE_BREAK_LAM:.4g}: block rows with a non-finite entry: K1 "
-          f"{k1_bad}, plain chain {plain_bad}, the f64 chain on the same f32 "
-          f"band {f64_bad}; max|ldinv_kernel L_plain - I| {resid:.4g}",
-          flush=True)
     require(it == FE_ITERS, f"front-end LM ran {FE_ITERS} iterations")
     # NaN compares false: a NaN last trial fails here
     require(err[-1] < err[0] / 2, f"front-end errors[-1] {float(err[-1]):.6g}"
                                   f" < errors[0] / 2 ({float(err[0]):.6g})")
     require(abs(final / final_d - 1) <= FE_FINAL_RTOL,
             f"front-end final χ² within {FE_FINAL_RTOL} of banded-direct's")
-    require(not plain_bad, "plain chain finite on the front end's band")
-    require(not k1_bad and resid <= FE_K1_TOL,
-            f"K1 keeps every pivot on the front end's band, within "
-            f"{FE_K1_TOL} of the plain chain")
+    frontend_k1_gate(gate, bl, device)
     for key in ("assemble_b1", "factorize", "substitute"):
         require(launches[key] > 0, f"{key} kernel launched on the front-end "
                                    f"path")
@@ -2913,13 +2952,34 @@ def frontend_phase(device):
     return launches
 
 
-def frontend_k1_check(graph, bl, device):
-    """K1 against the plain chain on K4's band of ``graph`` at λ =
-    FE_BREAK_LAM: (K1's, the plain chain's and the f64 chain's block rows
-    with a non-finite entry, max|ldinv_kernel L_plain - I| over the rows;
-    inf when K1 lost a pivot)."""
+def frontend_gate_graph():
+    """The graph the front end's K1 gate reads its band from: the front
+    end's graph of frontend_dataset() built in f64 on the CPU, through
+    banded-direct LM FE_ITERS on the CPU in one thread (sequential
+    index_add_ and one BLAS thread: the same bits every run). chip_smoke
+    runs this in a worker process from its start, beside the card's
+    phases. Returns (graph_spec of the final graph, seconds)."""
     import torch
 
+    from rustrobotics_tpu_torch.mapping import (
+        build_pose_graph_from_slam_course,
+    )
+    from rustrobotics_tpu_torch.mapping.pgo import make_optimize
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    g = build_pose_graph_from_slam_course(frontend_dataset(),
+                                          dtype=torch.float64, device="cpu")
+    out, _, _ = make_optimize(g, num_iterations=FE_ITERS, solver="lm",
+                              tolerance=0.0, backend="banded-direct",
+                              device="cpu")(g)
+    return graph_spec(out), time.perf_counter() - t0
+
+
+def gate_band(graph, bl, device, lam):
+    """(dsym, lcoup) of K4's band of ``graph`` (f32) at λ on the card: the
+    per-edge values of system_values, no atomics, summed by K4 in plan
+    order."""
     from rustrobotics_tpu_torch.mapping.assemble import system_values
     from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
         band_assemble_kernel,
@@ -2928,26 +2988,101 @@ def frontend_k1_check(graph, bl, device):
         _prepare_blocks,
         split_blocks,
     )
-    from rustrobotics_tpu_torch.ops.band_chol_kernels import (
-        factorize_kernel,
-        factorize_plain,
-    )
 
-    vals, _, _ = system_values(graph.to(dtype=torch.float32), FE_BREAK_LAM)
-    dsym, lcoup = split_blocks(
+    vals, _, _ = system_values(graph.to(device=device), lam)
+    return split_blocks(
         _prepare_blocks(bl.to(device), vals, band_assemble_kernel)[0])
-    ld_k, _ = factorize_kernel(dsym, lcoup)
-    ld_p, _ = factorize_plain(dsym, lcoup)
-    ld_64, _ = factorize_plain(dsym.double(), lcoup.double())
+
+
+def band_checksum(dsym, lcoup):
+    """SHA-256 of a band's bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (dsym, lcoup):
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pivot_gate(dsym, lcoup, factorize, plain, tol=FE_K1_TOL):
+    """K1 (``factorize``) against the plain chain (``plain``) on one f32
+    band, held where exact arithmetic has a factorization. r64 is the
+    first block row where the f64 chain on the same band (``plain`` in
+    f64) has a non-finite entry, nb where there is none; past it no
+    factorization exists, and whether a rounded chain keeps a pivot
+    there is luck. Returns a dict: r64, nb, the block rows with a
+    non-finite entry of K1 (k1_bad), of the plain chain (plain_bad) and of
+    the f64 chain (f64_bad), resid = max over the rows before r64 of
+    |ldinv_K1 L_plain - I| (inf where K1 or the plain chain lost a pivot
+    there), and ok: r64 >= 1, K1 and the plain chain keep every pivot
+    before r64, and resid <= tol. Where r64 = nb this is the whole band."""
+    import torch
+
+    ld_k, _ = factorize(dsym, lcoup)
+    ld_p, _ = plain(dsym, lcoup)
+    ld_64, _ = plain(dsym.double(), lcoup.double())
 
     def bad(t):
         return torch.nonzero(
             ~torch.isfinite(t).flatten(1).all(1)).flatten().tolist()
 
-    k1_bad, plain_bad = bad(ld_k), bad(ld_p)
-    resid = (math.inf if k1_bad or plain_bad
-             else max_eye_residual(ld_k, factor_of(ld_p)))
-    return k1_bad, plain_bad, bad(ld_64), resid
+    nb = dsym.shape[-3]
+    k1_bad, plain_bad, f64_bad = bad(ld_k), bad(ld_p), bad(ld_64)
+    r64 = f64_bad[0] if f64_bad else nb
+    lost = [r for r in k1_bad + plain_bad if r < r64]
+    if lost or r64 == 0:
+        resid = math.inf
+    else:
+        resid = float(eye_residual_rows(ld_k[:r64],
+                                        factor_of(ld_p[:r64])).max())
+    return dict(r64=r64, nb=nb, k1_bad=k1_bad, plain_bad=plain_bad,
+                f64_bad=f64_bad, resid=resid,
+                ok=r64 >= 1 and not lost and resid <= tol)
+
+
+def frontend_k1_gate(gate, bl, device):
+    """The front end's K1 gate (phase m) on the band of frontend_gate_graph
+    (``gate``: its pending result) at λ = FE_BREAK_LAM, then at λ =
+    LM_LAMBDA0."""
+    import torch
+
+    from rustrobotics_tpu_torch.ops.band_chol_kernels import (
+        factorize_kernel,
+        factorize_plain,
+    )
+
+    t0 = time.perf_counter()
+    spec, secs = gate.get()
+    waited = time.perf_counter() - t0
+    graph = port_graph(spec, device).to(dtype=torch.float32)
+    sums = [band_checksum(*gate_band(graph, bl, device, FE_BREAK_LAM))
+            for _ in range(2)]
+    print(f"[frontend] the K1 gate's graph: banded-direct LM {FE_ITERS} in "
+          f"f64 on the CPU, cast to f32 ({secs:.2f} s in a worker process, "
+          f"{waited:.2f} s waited for here); SHA-256 of K4's band "
+          f"at λ = {FE_BREAK_LAM:.4g}, two builds: {sums[0]}, {sums[1]}",
+          flush=True)
+    require(sums[0] == sums[1], "[frontend] the gate's band is "
+                                "bit-reproducible (two builds' SHA-256 equal)")
+    for lam in (FE_BREAK_LAM, LM_LAMBDA0):
+        res = pivot_gate(*gate_band(graph, bl, device, lam),
+                         factorize_kernel, factorize_plain)
+        whole = res["r64"] == res["nb"]
+        print(f"[frontend] K4's band at λ = {lam:.4g}: the f64 chain on the "
+              f"f32 band keeps "
+              + ("every pivot" if whole else
+                 f"the pivots of block rows 0..{res['r64'] - 1} of "
+                 f"{res['nb']} (r64 = {res['r64']})")
+              + f"; block rows with a non-finite entry: K1 {res['k1_bad']}, "
+                f"plain chain {res['plain_bad']}, f64 chain "
+                f"{res['f64_bad']}; max|ldinv_kernel L_plain - I| over rows "
+                f"0..{res['r64'] - 1}: {res['resid']:.4g}", flush=True)
+        require(res["r64"] >= 1, f"[frontend] λ = {lam:.4g}: the f64 chain "
+                                 f"keeps block row 0's pivots (r64 >= 1)")
+        require(res["ok"],
+                f"[frontend] λ = {lam:.4g}: K1 and the plain chain keep every "
+                f"pivot of the {'whole band' if whole else 'rows before r64'}"
+                f", K1 within {FE_K1_TOL} of the plain chain")
 
 
 # ------------------------------------------------------------- filters
@@ -4798,7 +4933,8 @@ def parallel_phase(device):
     the same draws, in f32 all but PF_F32_FLIP_SHARE of the rows (timed
     in f32).
     s per GN iteration, PCG rounds per solve, steps/s and Mparticles/s
-    printed. Returns the K1-K5 counts of the phase (0 expected)."""
+    printed. Returns the K1-K5 counts of the phase (0 expected) and the
+    optimize(backend="cg") results by solver."""
     import torch
     import torch.distributed as dist
 
@@ -4963,9 +5099,284 @@ def parallel_phase(device):
                 "[parallel] bounded PF: 0 ring rounds at world size 1")
         print(f"[parallel] K1-K5 launches in this phase: {counts}; "
               f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+        return counts, {k: res for k, (res, _) in refs.items()}
+    finally:
+        dist.destroy_process_group()
+
+
+def _block_report(label, errs, it, rounds, wall, note=""):
+    """Print a block run's s a GN iteration, CG rounds a GN iteration and
+    ms of the run a CG round (assembly, preconditioner and retraction
+    counted in) beside its χ² trace."""
+    require(it > 0 and rounds > 0,
+            f"[blocks] {label}: GN iterations and CG rounds ran")
+    print(f"[blocks] {label}: {wall / it:.4f} s a GN iteration{note}, "
+          f"{rounds / it:.1f} CG rounds a GN iteration, "
+          f"{wall / rounds * 1e3:.4f} ms of the run a CG round; χ² "
+          f"{[float(f'{e:.6g}') for e in errs]}", flush=True)
+
+
+def blocks_phase(device, refs):
+    """Phase blocks: the map-block optimizer on an NCCL process group of
+    world size 1, destroyed at the end (BLK_* above); ``refs`` the
+    single-device optimize(backend="cg") runs on corridor-1728 that
+    parallel_phase made, by solver. Returns the K1-K5 counts of the phase
+    (0 expected)."""
+    import pathlib
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rustrobotics_tpu_torch.mapping.synthetic import (
+        synthetic_corridor_graph_2d,
+    )
+    from rustrobotics_tpu_torch.parallel import (
+        block_optimize,
+        build_block_layout,
+        comm_budget,
+        make_block_optimize,
+        make_mesh,
+    )
+    from rustrobotics_tpu_torch.parallel.pgo_blocks import (
+        block_optimize_elastic,
+        extract_graph,
+        layout_device_arrays,
+    )
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, axis="blocks")
+        reset_counts()
+        # corridor-100k: one layout, the optimizer with Jacobi and with
+        # Schwarz in f64, then Jacobi in f32
+        g100 = synthetic_corridor_graph_2d(num_poses=BLK_POSES,
+                                           num_landmarks=0,
+                                           dtype=torch.float64, device=device)
+        require(g100.total_dof >= 100_000,
+                f"[blocks] corridor-100k has {g100.total_dof} >= 100,000 dof")
+        t0 = time.perf_counter()
+        layout = build_block_layout(g100, 1)
+        print(f"[blocks] corridor-100k: n = {g100.total_dof}; D = 1: h = "
+              f"{layout.h}, ELL width {layout.ell_width}, Schwarz band kb = "
+              f"{layout.kb_loc}, nb = {layout.nb_loc}; build_block_layout "
+              f"{time.perf_counter() - t0:.2f} s of host time", flush=True)
+        kw = dict(num_iterations=BLK_GN, tolerance=0.0,
+                  cg_maxiter=BLK_CG_MAXITER)
+        runs = {}
+        for name, dtype, precond, cg_tol in (
+                ("f64, jacobi", torch.float64, "jacobi", BLK_CG_TOL),
+                ("f64, schwarz", torch.float64, "schwarz", BLK_CG_TOL),
+                ("f32 (cg_tol 1e-6), jacobi", torch.float32, "jacobi",
+                 BLK_F32_CG_TOL)):
+            arrays = layout_device_arrays(layout, dtype, device)
+            run = make_block_optimize(mesh, layout, dtype=dtype,
+                                      precond=precond, cg_tol=cg_tol, **kw)
+            (st, e, it, rounds), wall = _timed(lambda: run(*arrays), device)
+            errs = [v for v in e.tolist() if not math.isnan(v)]
+            _block_report(f"corridor-100k {name}", errs, it, rounds, wall)
+            print(f"[blocks] comm_budget: "
+                  f"{json.dumps(comm_budget(layout, dtype, it, rounds))}",
+                  flush=True)
+            finite = all(math.isfinite(v) for v in errs)
+            drop = BLK_DROP if dtype == torch.float64 else 1.0
+            require(finite and errs[-1] < errs[0] * drop,
+                    f"[blocks] corridor-100k {name}: finite, errors[-1] "
+                    f"{errs[-1]:.6g} < errors[0] x {drop:g}")
+            runs[name] = errs
+        out = extract_graph(layout, g100, st)
+        require(out.poses2.shape == g100.poses2.shape
+                and bool(torch.isfinite(out.poses2).all()),
+                "[blocks] extract_graph returns corridor-100k's poses, "
+                "finite")
+        del g100, layout, arrays, st, out
+        # corridor-1728 f64 through block_optimize against the single-device
+        # cg
+        g64 = corridor(1728, device)
+        blk = {}
+        for label, solver, iters, extra in (
+                ("GN single", "gauss_newton", PAR_GN_ITERS, {}),
+                ("GN classic", "gauss_newton", PAR_GN_ITERS,
+                 dict(cg_variant="classic")),
+                ("LM", "levenberg_marquardt", PAR_LM_ITERS, {}),
+                ("GN Schur", "gauss_newton", PAR_GN_ITERS, dict(schur=True))):
+            (g, errs, it, stats), wall = _timed(
+                lambda: block_optimize(mesh, g64, num_iterations=iters,
+                                       solver=solver, tolerance=0.0,
+                                       cg_tol=1e-10, return_stats=True,
+                                       **extra), device)
+            _block_report(f"corridor-1728 f64 {label}", errs, it,
+                          stats["cg_rounds_total"], wall,
+                          " (its layout build counted in)")
+            blk[label] = (g, errs)
+        for label, (g, errs) in blk.items():
+            ref = refs["levenberg_marquardt" if label == "LM"
+                       else "gauss_newton"]
+            rel = _trace_close(errs, ref.errors, PAR_CHI2_FLOOR * errs[0])
+            pose = _maxdiff(g.poses2, ref.graph.poses2, heading=2)
+            print(f"[blocks] corridor-1728 {label} against optimize(cg): χ² "
+                  f"trace {rel:.3g} relative, poses {pose:.3g}", flush=True)
+            if label != "GN Schur":
+                require(rel <= PAR_RTOL and pose <= PAR_POSE_TOL,
+                        f"[blocks] corridor-1728 {label} within {PAR_RTOL} "
+                        f"(χ²) and {PAR_POSE_TOL} (poses) of optimize(cg)")
+        gn = blk["GN single"][1]
+        # Schur eliminates the landmarks with Hll + 1e-10 I (the JAX
+        # package's regularization): held to the non-Schur run's final χ²
+        schur = blk["GN Schur"][1]
+        rel = _trace_close(schur[-1:], gn[-1:], PAR_CHI2_FLOOR * gn[0])
+        require(rel <= PAR_RTOL, f"[blocks] Schur's final χ² {schur[-1]:.6g} "
+                                 f"within {PAR_RTOL} of the non-Schur run's "
+                                 f"{gn[-1]:.6g} (floor {PAR_CHI2_FLOOR} x "
+                                 f"errors[0])")
+        # elastic: one segment, then resumed, against the GN run
+        with tempfile.TemporaryDirectory() as ck:
+            ekw = dict(segment=BLK_SEGMENT, tolerance=0.0, cg_tol=1e-10,
+                       checkpoint_dir=ck)
+            _, first, it_a = block_optimize_elastic(
+                mesh, g64, num_iterations=BLK_SEGMENT, **ekw)
+            (g_el, errs_el, it_b), wall_el = _timed(
+                lambda: block_optimize_elastic(
+                    mesh, g64, num_iterations=PAR_GN_ITERS, **ekw), device)
+            snaps = sorted(p.name for p in pathlib.Path(ck).glob(
+                "block_*.npz"))
+        rel = _trace_close(errs_el, gn, PAR_CHI2_FLOOR * gn[0])
+        print(f"[blocks] elastic corridor-1728 f64, segments of "
+              f"{BLK_SEGMENT}: interrupted after {it_a}, resumed to {it_b} "
+              f"({wall_el:.2f} s), snapshots {snaps}; against the "
+              f"uninterrupted GN {rel:.3g} relative", flush=True)
+        require(it_a == BLK_SEGMENT and it_b == PAR_GN_ITERS
+                and rel <= PAR_RTOL,
+                f"[blocks] elastic resume equals the uninterrupted run within "
+                f"{PAR_RTOL}")
+        counts = read_counts()
+        # one GN iteration of corridor-1728 f64 (Jacobi) under the
+        # profiler: device launches a CG round and the card's idle share
+        layout = build_block_layout(g64, 1)
+        arrays = layout_device_arrays(layout, torch.float64, device)
+        one = make_block_optimize(mesh, layout, num_iterations=1,
+                                  tolerance=0.0, cg_tol=1e-10,
+                                  precond="jacobi", dtype=torch.float64)
+        rounds = one(*arrays)[3]
+        label = "map-block GN corridor-1728 f64 jacobi, 1 iteration"
+        totals = trace(label, lambda: one(*arrays), {"all": ""})
+        if totals:
+            print(f"[trace] {label}: {rounds} CG rounds, "
+                  f"{totals['all'][1] / rounds:.1f} device launches a CG "
+                  f"round", flush=True)
+        print(f"[blocks] K1-K5 launches in this phase: {counts}; "
+              f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+        require(not any(counts.values()), "[blocks] K1-K5 launch 0 times")
         return counts
     finally:
         dist.destroy_process_group()
+
+
+def noisy_corridor_spec():
+    """corridor-1728's spec with its measurements drawn about the truth
+    from the edges' own information (numpy default_rng(CLI_SEED)): N(0,
+    0.1²) m and N(0, 0.05²) rad on the pose-pose edges, N(0, 1/50) m² on
+    the pose-landmark edges, so its optimum's χ² is ~1e3, far above
+    rounding."""
+    spec = graph_spec(corridor(1728, "cpu"))
+    f = spec["fields"]
+    rng = np.random.default_rng(CLI_SEED)
+    for z, om in ((f["pp_z"], f["pp_omega"]), (f["pl_z"], f["pl_omega"])):
+        sd = 1.0 / np.sqrt(np.diagonal(om, axis1=-2, axis2=-1))
+        z += rng.normal(size=z.shape) * sd
+    f["pp_z"][:, 2] = _wrap(f["pp_z"][:, 2])
+    return spec
+
+
+def cli_phase(device):
+    """Phase cli: ``python -m rustrobotics_tpu_torch.cli pgo --file
+    <noisy corridor-1728.g2o> --distributed 1 --x64`` in a subprocess
+    against the same command run in-process (the counters around it),
+    both against the single-device optimize(backend="cg") on the same
+    file, and ``doctor`` in a subprocess. Returns the K1-K5 counts of the
+    in-process run."""
+    import io
+    import pathlib
+    import re
+    import tempfile
+
+    import torch
+
+    from rustrobotics_tpu_torch import cli
+    from rustrobotics_tpu_torch.mapping import load_g2o
+    from rustrobotics_tpu_torch.mapping.pgo import optimize
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "corridor-1728-noisy.g2o"
+        path.write_text(g2o_text(noisy_corridor_spec()))
+        argv = ["pgo", "--file", str(path), "--distributed", "1", "--x64",
+                "--iterations", str(CLI_ITERS)]
+        # both subprocesses run beside the in-process run
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rustrobotics_tpu_torch.cli", *args],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for args in (argv, ["doctor"])]
+        try:
+            reset_counts()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(argv)
+            counts = read_counts()
+            graph = load_g2o(str(path), dtype=torch.float64, device=device)
+            (out, err), (doc_out, _) = (p.communicate(timeout=CLI_TIMEOUT)
+                                        for p in procs)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    rc, doc_rc = (p.returncode for p in procs)
+    pattern = r"converged in (\d+) iterations; chi2 ([0-9.e+-]+) -> " \
+              r"([0-9.e+-]+)"
+    sub = re.search(pattern, out)
+    here = re.search(pattern, buf.getvalue())
+    print(f"[cli] subprocess (exit {rc}): "
+          f"{out.strip().splitlines()[-1:]}; in-process: "
+          f"{buf.getvalue().strip().splitlines()[-1:]}", flush=True)
+    print("[cli] doctor (exit {}):\n{}".format(
+        doc_rc, "\n".join("  " + ln for ln in doc_out.strip().splitlines())),
+          flush=True)
+    if rc != 0:
+        fail(f"[cli] `cli pgo --distributed 1` exited {rc}: "
+             f"{err.strip()[-2000:]}")
+    require(sub is not None and here is not None,
+            "[cli] `cli pgo --distributed 1` exits 0 and prints its χ², "
+            "in a subprocess and in-process")
+    it = int(here.group(1))
+    ref = optimize(graph, num_iterations=it, solver="gauss_newton",
+                   backend="cg", tolerance=0.0, device=device).errors
+    # the CLI prints χ² with 1 decimal at the start and 5 at the end
+    printed = [(float(here.group(2)), ref[0], 0.05),
+               (float(here.group(3)), ref[it], 5e-6)]
+    print(f"[cli] optimize(cg) GN {it} on the same file: χ² {ref[0]:.1f} -> "
+          f"{ref[it]:.5f}", flush=True)
+    require(ref[it] > 1.0 and all(abs(a - b) <= r + PAR_RTOL * abs(b)
+                                  for a, b, r in printed),
+            f"[cli] the in-process χ² within {PAR_RTOL} (and the print's "
+            f"rounding) of optimize(cg)'s, the final one above 1")
+    require(sub.group(1) == here.group(1)
+            and all(abs(float(a) - float(b)) <= r + PAR_RTOL * abs(float(b))
+                    for a, b, r in zip(sub.groups()[1:], here.groups()[1:],
+                                       (0.1, 1e-5))),
+            "[cli] the subprocess prints the in-process run's iterations "
+            "and χ² (within PAR_RTOL and a unit of the print)")
+    require(doc_rc == 0 and "accelerator: cuda" in doc_out
+            and doc_out.count(": built (") == len(SOURCES),
+            "[cli] `cli doctor` exits 0, sees the card and builds every "
+            "CUDA source")
+    print(f"[cli] K1-K5 launches of the in-process run: {counts}; "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    require(not any(counts.values()), "[cli] K1-K5 launch 0 times")
+    return counts
 
 
 def aux_phase(device, g32):
@@ -5050,7 +5461,8 @@ def trace(label, run, groups):
     run: device time by kernel group (the first group whose pattern is in
     the kernel's name) and the device's idle share of the traced window
     (first to last event). The profiler's own host cost lengthens the
-    window, so the idle share is an upper bound."""
+    window, so the idle share is an upper bound. Returns {group: [device
+    µs, launches]}, or None when the profiler saw no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5089,6 +5501,7 @@ def trace(label, run, groups):
               f"{k1 / factorizations:.2f} ({k1} in {factorizations} calls); "
               f"panel_chol_inv {us / max(count, 1):.2f} us per launch",
               flush=True)
+    return totals
 
 
 def main() -> int:
@@ -5100,16 +5513,19 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    # the CPU f64 references, computed in two worker processes beside the
-    # card's phases; the pool's exit terminates the workers
-    with multiprocessing.get_context("spawn").Pool(2) as pool:
+    # the CPU f64 references and the front end's gate graph, computed in
+    # three worker processes beside the card's phases; the pool's exit
+    # terminates the workers
+    with multiprocessing.get_context("spawn").Pool(3) as pool:
         return smoke(pool.apply_async(cpu_references),
-                     pool.apply_async(slam_references))
+                     pool.apply_async(slam_references),
+                     pool.apply_async(frontend_gate_graph))
 
 
-def smoke(refs, slam_refs) -> int:
-    """The phases on the card; ``refs`` and ``slam_refs`` the pending
-    cpu_references() and slam_references()."""
+def smoke(refs, slam_refs, gate) -> int:
+    """The phases on the card; ``refs``, ``slam_refs`` and ``gate`` the
+    pending cpu_references(), slam_references() and
+    frontend_gate_graph()."""
     import torch
 
     smi = subprocess.run(
@@ -5160,7 +5576,7 @@ def smoke(refs, slam_refs) -> int:
     boot_launches = bootstrap_phase(device)
     pg_launches = posegraph_phase(device)
     fixed_lag_phase(device)
-    fe_launches = frontend_phase(device)
+    fe_launches = frontend_phase(device, gate)
     # the filters (this slice's paths), counters set to 0 around them: the
     # filter path runs none of K1-K5
     t_filters = time.perf_counter()
@@ -5197,8 +5613,12 @@ def smoke(refs, slam_refs) -> int:
           + f"; {waited:.2f} s waiting for their CPU references)",
           flush=True)
     # the distributed tier and the measurement layer (this slice)
-    par_launches = parallel_phase(device)
+    par_launches, cg_refs = parallel_phase(device)
     aux_phase(device, g32)
+    # the map blocks and the CLI (this slice), counters set to 0 around
+    # each: they run none of K1-K5
+    blk_launches = blocks_phase(device, cg_refs)
+    cli_launches = cli_phase(device)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
     timed["banded_matvec"].update(k3_fleet_times(k3b))
@@ -5316,6 +5736,8 @@ def smoke(refs, slam_refs) -> int:
         k["filters_launches"] = filter_launches[key]
         k["slam_launches"] = slam_launches[key]
         k["parallel_launches"] = par_launches[key]
+        k["blocks_launches"] = blk_launches[key]
+        k["cli_launches"] = cli_launches[key]
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]

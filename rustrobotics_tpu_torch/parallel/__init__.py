@@ -3,7 +3,9 @@
 
 Meshes of ranks (``make_mesh``, ``make_mesh_2d``), edge-sharded
 Gauss-Newton / Levenberg-Marquardt with all-reduced normal equations and
-PCG, and the sharded particle filter. On one H100 the group is NCCL at
+PCG, the sharded particle filter, and map-block optimization (nodes and
+edges partitioned by an RCM layout, halo-exchange PCG, Schwarz
+preconditioning, Schur elimination, replica rows for multi-start). On one H100 the group is NCCL at
 world size 1; gloo groups on the CPU run any world size.
 """
 
@@ -19,4 +21,14 @@ from rustrobotics_tpu_torch.parallel.pgo_sharded import (  # noqa: F401
 )
 from rustrobotics_tpu_torch.parallel.pf_sharded import (  # noqa: F401
     sharded_pf_step,
+)
+from rustrobotics_tpu_torch.parallel.block_layout import (  # noqa: F401
+    build_block_layout,
+)
+from rustrobotics_tpu_torch.parallel.pgo_blocks import (  # noqa: F401
+    block_optimize,
+    block_optimize_multistart,
+    comm_budget,
+    make_block_optimize,
+    make_block_step,
 )

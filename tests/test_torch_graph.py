@@ -95,7 +95,16 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = sorted((ROOT / "rustrobotics_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the JAX-free rank processes of the distributed tests
+    files += sorted((ROOT / "tests").glob("test_torch_*_worker.py"))
     assert len(files) > 10
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"rustrobotics_tpu_torch/parallel/block_layout.py",
+            "rustrobotics_tpu_torch/parallel/pgo_blocks.py",
+            "rustrobotics_tpu_torch/cli.py",
+            "rustrobotics_tpu_torch/examples/distributed_pgo.py",
+            "tests/test_torch_blocks_worker.py",
+            "tests/test_torch_parallel_worker.py"} <= names
     bad = []
     for path in files:
         for mod in _imports(path):
