@@ -101,8 +101,8 @@ Phases; any failure ends the script with a non-zero exit code:
       through W=FL_WINDOW, C=FL_CAPACITY, a closure at each revisit, f32
       on the card against f64 on the CPU (FL_POSE_TOL at every step), RMSE
       against dead reckoning (FL_RMSE_FACTOR), every state tensor on the
-      card; steps/s, device launches per advance and the idle share
-      printed;
+      card; device launches per advance and the idle share printed (its
+      steps/s is the bench phase's fixed_lag_w32 row);
    m. frontend: a synthetic SLAM-course log (FE_POSES poses along
       corridor-1728's path, FE_LANDMARKS landmarks) loaded, built into a
       graph by build_pose_graph_from_slam_course, LM FE_ITERS on
@@ -217,6 +217,21 @@ Phases; any failure ends the script with a non-zero exit code:
       against the same command in-process and both against
       optimize(backend="cg") on the same file, and `cli doctor`; K1-K5
       launch 0 times in both;
+   the benchmark entry:
+   bench. `python -m rustrobotics_tpu_torch.cli bench --suite-out` in a
+      subprocess on a dataset root without intel.g2o: its last line
+      parses (synthetic1728), banded-kernel ran in its race, the chosen
+      backend's χ² trace falls, its MFU is in (0, 1.05], the suite file
+      holds rows and no error, the repo's BENCH_SUITE.json is unchanged;
+      then in-process on a dataset root of corridor-1728, sphere-2500 (g2o
+      files) and a write_utias set, the counters set to 0 around each
+      family: graph_slam (banded-kernel and banded-direct; K4, K1 and K2
+      once a banded-kernel GN iteration, the kernel's χ² trace within
+      PARITY_TOL["solve"] of banded-direct's), pgo_batch (the fleet of 8;
+      K5 once a fleet iteration, K1 and K2 once an iteration), the fleet
+      replay, and on an NCCL group of world size 1 the sharded PF, the
+      block scaling, entry() and dryrun_multichip(1); every row printed
+      beside the card's name and power limit;
    phases v and s also feed the repaired non-finite paths: one NaN pixel
    in the VIS_TRI_POINTS triangulation (its point NaN, the rest as the
    clean run's) and ICP with a NaN point (R, t, rmse NaN, no error);
@@ -230,8 +245,9 @@ Phases; any failure ends the script with a non-zero exit code:
    banded-kernel GN's MFU from roofline.pgo_iteration_flops), and the
    fleets' graph-iterations/s against one graph's; K1, K2, K4 and K5 again
    at sphere-2500's kb = 384;
-6. trace: one GN run of each main path under torch.profiler, device time
-   by kernel and the device's idle share; K1's device launches per
+6. trace: one GN run of each main path under torch.profiler (cg-banded
+   and sphere-2500 GN of TRACE_SHORT_ITERS iterations), device time by
+   kernel and the device's idle share; K1's device launches per
    factorization and the panel kernel's µs per launch;
 7. one JSON line describing the kernels (K1, K2, K4 and K5 with their
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
@@ -239,7 +255,8 @@ Phases; any failure ends the script with a non-zero exit code:
    under bootstrap_launches, posegraph_launches and frontend_launches,
    and every kernel with filters_launches, slam_launches,
    parallel_launches, blocks_launches and cli_launches, 0: the filter,
-   SLAM, vision, control, parallel, blocks and cli phases run none),
+   SLAM, vision, control, parallel, blocks and cli phases run none; and
+   bench_launches, the in-process families of the bench phase),
    then the contract line {"ok": true, "device": {...}}
    last.
 """
@@ -440,6 +457,7 @@ SCAN_T, EIF_EVENTS, HIST_EVENTS, HIST_GRID = 4096, 2000, 100, (64, 64, 36)
 FLEET_F64_EVENTS = 2000  # the fleet's rows in f64 on the card
 SCAN_SYSTEM_SEED = 3  # numpy seed of the Kalman scan's observations
 TRACE_EVENTS = 100  # events of a replay under torch.profiler
+TRACE_SHORT_ITERS = 3  # GN iterations of the cg-banded and sphere traces
 # Limits (max |difference|, headings wrapped), about 10x the first card
 # readings (NVIDIA H100 80GB HBM3, 700.00 W), in brackets. The f32 fleet
 # rows drift from f64 by the single filter's own f32 drift (centimetres:
@@ -553,6 +571,8 @@ BLK_DROP, BLK_F32_CG_TOL, BLK_SEGMENT = 1e-3, 1e-6, 2
 # optimize(backend="cg") within PAR_RTOL; CLI_TIMEOUT s for each
 # subprocess
 CLI_ITERS, CLI_SEED, CLI_TIMEOUT = 6, 0, 300
+# the headline benchmark's subprocess (bench_headline), s
+BENCH_TIMEOUT = 400
 
 # the repair of non-finite input: the point given a NaN pixel in
 # [vision]'s triangulation, the point given NaN in [scan-matching]'s ICP
@@ -2775,7 +2795,8 @@ def rmse_against_truth(poses, gt, odom):
 def fixed_lag_phase(device):
     """Phase 4l: the fixed-lag smoother's circle session, f32 on the card
     against f64 on the CPU through the port; RMSE against dead reckoning,
-    steps/s, device launches per advance and the idle share."""
+    device launches per advance and the idle share (steps/s: the [bench]
+    row of benchmarks.bench_fixed_lag)."""
     import dataclasses
 
     import torch
@@ -2783,14 +2804,9 @@ def fixed_lag_phase(device):
 
     gt, data = closure_plan(FL_WINDOW)
     odom, closures = data[1], data[4]
-    fixed_lag_session(device, torch.float32, data)  # warm-up
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, state, poses = fixed_lag_session(device, torch.float32, data)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
+    # one session for the gates; the smoother's steps/s at W = 32 is the
+    # [bench] row fixed_lag_w32_steps_per_sec (best of 5 sessions)
+    _, state, poses = fixed_lag_session(device, torch.float32, data)
     _, _, ref = fixed_lag_session("cpu", torch.float64, data)
     fields = {f.name: getattr(state, f.name)
               for f in dataclasses.fields(state)}
@@ -2836,10 +2852,9 @@ def fixed_lag_phase(device):
         fixed_lag_session(device, torch.float32, short)
         torch.cuda.synchronize()
     idle = idle_share(prof.events())
-    wall = statistics.median(walls)
     print(f"[fixed-lag] {FL_STEPS} steps, W={FL_WINDOW}, C={FL_CAPACITY}, "
-          f"{len(closures)} closures: {FL_STEPS / wall:.4f} steps/s on the "
-          f"card (median of 3 sessions, {wall * 1e3:.4f} ms a session); "
+          f"{len(closures)} closures on the card (steps/s: the [bench] row "
+          f"fixed_lag_w{FL_WINDOW}_steps_per_sec); "
           f"{per_advance:.1f} device launches per advance (torch.profiler, "
           f"the window full); device idle share of a traced session of "
           f"{FL_TRACED} steps "
@@ -2860,8 +2875,7 @@ def fixed_lag_phase(device):
     require(e16 < e_dr / FL_RMSE_FACTOR,
             f"W={FL_TEST_WINDOW} RMSE {e16:.4g} < dead reckoning's "
             f"{e_dr:.4g} / {FL_RMSE_FACTOR}")
-    return dict(steps_per_s=FL_STEPS / wall, launches_per_advance=per_advance,
-                idle_share=idle)
+    return dict(launches_per_advance=per_advance, idle_share=idle)
 
 
 def frontend_dataset():
@@ -5379,6 +5393,193 @@ def cli_phase(device):
     return counts
 
 
+def _chi2_falls(errs):
+    """A χ² trace that is finite, whose entries above 1 fall at every
+    step, and whose last entry is below its first."""
+    big = [e for e in errs if e > 1.0]
+    return (all(math.isfinite(e) for e in errs) and errs[-1] < errs[0]
+            and all(b < a for a, b in zip(big, big[1:])))
+
+
+def bench_dataset(directory):
+    """A dataset root for the benchmark families: g2o/corridor-1728.g2o,
+    g2o/sphere-2500.g2o (both synthetic: corridor() and sphere_graph())
+    and utias0/ (write_utias)."""
+    g2o = directory / "g2o"
+    g2o.mkdir(parents=True)
+    (g2o / "corridor-1728.g2o").write_text(
+        g2o_text(graph_spec(corridor(1728, "cpu"))))
+    (g2o / "sphere-2500.g2o").write_text(g2o_text(sphere_graph()))
+    (directory / "utias0").mkdir()
+    write_utias(directory / "utias0", seed=0)
+
+
+def bench_headline(root, directory):
+    """`python -m rustrobotics_tpu_torch.cli bench --suite-out` in a
+    subprocess on a dataset root without intel.g2o (so synthetic1728 is
+    timed), with its gates. Returns (headline line, suite rows)."""
+    import os
+    import re
+
+    empty = directory / "headline-root"
+    empty.mkdir()
+    suite_path = directory / "suite.json"
+    suite_json = root / "BENCH_SUITE.json"
+    before = suite_json.read_bytes()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rustrobotics_tpu_torch.cli", "bench",
+         "--suite-out", str(suite_path)],
+        cwd=root, env=dict(os.environ, RUSTROBOTICS_DATASET=str(empty)),
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    print("[bench] headline stderr: " + " | ".join(
+        ln for ln in proc.stderr.splitlines() if ln.startswith("[bench]")),
+          flush=True)
+    if proc.returncode != 0:
+        fail(f"[bench] `cli bench` exited {proc.returncode}: "
+             f"{proc.stderr.strip()[-2000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    print(f"[bench] headline: {last}", flush=True)
+    line = json.loads(last)
+    extra = line["extra"]
+    require(line["metric"] == "pgo_synthetic1728_gn_iters_per_sec"
+            and line["value"] > 0 and line["vs_baseline"] > 0,
+            "[bench] the headline's last line parses: synthetic1728 timed")
+    require("banded-kernel" in extra["backend_ms_per_10it"],
+            "[bench] banded-kernel ran in the headline's race")
+    trace = re.search(r"chi2 trace (\[[^]]*\])", proc.stderr)
+    errs = json.loads(trace.group(1)) if trace else [math.nan]
+    require(_chi2_falls(errs),
+            f"[bench] the chosen backend's ({extra['solver_backend']}) χ² "
+            f"trace is finite and falls: {errs}")
+    mfu = extra["mfu_vs_f32_peak"]
+    require(mfu is not None and 0 < mfu <= 1.05,
+            f"[bench] mfu_vs_f32_peak {mfu} in (0, 1.05]")
+    rows = json.loads(suite_path.read_text())["suite"]
+    require(len(rows) == extra["suite_rows"] > 0
+            and not any("error" in r for r in rows),
+            f"[bench] the suite file holds {len(rows)} rows, none an error")
+    require(suite_json.read_bytes() == before,
+            "[bench] the repo's BENCH_SUITE.json is byte-identical")
+    return line, rows
+
+
+def bench_phase(device):
+    """Phase bench: the port's headline in a subprocess (bench_headline),
+    then the dataset-bound suite families in-process on a
+    bench_dataset root, each with the counters set to 0 before it and
+    read after: graph_slam (corridor-1728 and sphere-2500, banded-kernel
+    and banded-direct; K4, K1 and K2 once a banded-kernel GN iteration,
+    each banded-kernel χ² trace within PARITY_TOL["solve"] of
+    banded-direct's on its entries above 1), pgo_batch (the fleet of 8 on
+    corridor-1728: K5 once a fleet iteration, K1 and K2 once an iteration
+    of the fleet or of one graph), fleet_replay, and on an NCCL group of
+    world size 1 (as in [blocks]) pf_sharded, block_scaling, entry() and
+    dryrun_multichip(1). Prints every row, the phase's wall time and the
+    card's name and power limit. Returns the K1-K5 counts of the
+    in-process families."""
+    import pathlib
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from rustrobotics_tpu_torch import benchmarks as bm
+    from rustrobotics_tpu_torch.entry import dryrun_multichip, entry
+    from rustrobotics_tpu_torch.mapping import load_g2o
+    from rustrobotics_tpu_torch.mapping.pgo import global_error
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(__file__).resolve().parent
+    total = {}
+    rows = []
+
+    def counted(label, call):
+        reset_counts()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"[bench] {label}: K1-K5 launches {counts} "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        return counts
+
+    with tempfile.TemporaryDirectory() as d:
+        d = pathlib.Path(d)
+        data = d / "dataset"
+        bench_dataset(data)
+        t0 = time.perf_counter()
+        line, suite = bench_headline(root, d)
+        t_headline = time.perf_counter() - t0
+        graphs = ("corridor-1728", "sphere-2500")
+        counts = counted("graph_slam", lambda: bm.bench_graph_slam(
+            rows, dataset_root=str(data), graphs=graphs,
+            backends=("banded-kernel", "banded-direct"), device=device))
+        require(counts["factorize"] == counts["substitute"]
+                == counts["assemble_b1"] > 0,
+                "[bench] graph_slam: K4, K1 and K2 launch once a "
+                "banded-kernel GN iteration")
+        for name in graphs:
+            g32 = load_g2o(str(data / "g2o" / f"{name}.g2o"),
+                           dtype=torch.float32, device=device)
+            kern, direct = (
+                bm._graph_slam_run(g32, b, 10, device)(g32)[1].double().cpu()
+                for b in ("banded-kernel", "banded-direct"))
+            big = direct > 1.0
+            rel = float(((kern[big] - direct[big]).abs()
+                         / direct[big]).max())
+            require(rel <= PARITY_TOL["solve"],
+                    f"[bench] {name}: banded-kernel's χ² trace within "
+                    f"{PARITY_TOL['solve']} of banded-direct's on the "
+                    f"entries above 1 ({rel:.3g})")
+        counts = counted("pgo_batch", lambda: bm.bench_pgo_batch(
+            rows, dataset_root=str(data), graph="corridor-1728", batch=8,
+            device=device))
+        require(counts["assemble_batch"] > 0
+                and counts["factorize"] == counts["substitute"]
+                == counts["assemble_batch"] + counts["assemble_b1"],
+                "[bench] pgo_batch: K5 once a fleet iteration, K1 and K2 "
+                "once an iteration of the fleet (batched) or of one graph")
+        counted("fleet_replay", lambda: bm.bench_fleet_replay(
+            rows, dataset_root=str(data), device=device))
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        counted("pf_sharded", lambda: bm.bench_pf_sharded(rows,
+                                                          device=device))
+        counted("block_scaling", lambda: bm.bench_block_scaling(
+            rows, device=device))
+        fn, (graph,) = entry()
+        chi2_0, chi2 = float(global_error(graph)), float(fn(graph)[2])
+        counted("dryrun_multichip(1)", lambda: dryrun_multichip(1))
+    finally:
+        dist.destroy_process_group()
+    require(math.isfinite(chi2) and chi2 < chi2_0,
+            f"[bench] entry(): one GN step lowers χ² ({chi2_0:.6g} -> "
+            f"{chi2:.6g})")
+    require(not any("error" in r for r in rows)
+            and {r["metric"] for r in rows} >= {
+                "graph_slam_corridor-1728_banded-kernel",
+                "graph_slam_sphere-2500_banded-kernel",
+                "pgo_batch8_corridor-1728_graphs_per_sec",
+                "utias_fleet_banked_ekf_kc_b1024",
+                "pf_sharded_1m_bounded_exchange",
+                "block_pgo_weak_scaling_d1"},
+            "[bench] every in-process family gave its rows, none an error")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    for r in suite + rows:
+        print(f"[bench] row {json.dumps(r)}", flush=True)
+    print(f"[bench] K1-K5 launches of the in-process families: {total}; "
+          f"headline {t_headline:.2f} s, phase "
+          f"{time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
+    return total
+
+
 def aux_phase(device, g32):
     """Phase aux: the measurement layer on the card. time_scalar_program
     on a scalar program (AUX_REPS passes over AUX_ELEMS floats) within
@@ -5619,6 +5820,9 @@ def smoke(refs, slam_refs, gate) -> int:
     # each: they run none of K1-K5
     blk_launches = blocks_phase(device, cg_refs)
     cli_launches = cli_phase(device)
+    # the benchmark entry (this slice): the headline, then the suite's
+    # dataset-bound and distributed families, counters set to 0 around each
+    bench_launches = bench_phase(device)
     timed = times(p1728, gn, g32)
     timed["banded_matvec"] = cg_times(k3, cg_gn, g32)
     timed["banded_matvec"].update(k3_fleet_times(k3b))
@@ -5646,11 +5850,22 @@ def smoke(refs, slam_refs, gate) -> int:
           f"{GNC_ITERS / wall:.4f} it/s ({wall / GNC_ITERS * 1e3:.4f} "
           f"ms/iteration, median of 3 runs of {GNC_ITERS})", flush=True)
     trace("GN banded-kernel, 10 iterations", lambda: gn(g32), K12_GROUPS)
-    trace("GN cg-banded, 10 iterations", lambda: cg_gn(g32), K3_GROUPS)
+    # the cg-banded and sphere-2500 runs trace TRACE_SHORT_ITERS GN
+    # iterations: the profiler's event list of 10 takes ~45 s and ~20 s to
+    # build, and their per-launch and idle readings do not need 10
+    cg_short = make_optimize(g32, num_iterations=TRACE_SHORT_ITERS,
+                             backend="cg-banded", tolerance=0.0,
+                             cg_tol=CG_TOL, cg_maxiter=CG_MAXITER,
+                             device=device)
+    trace(f"GN cg-banded, {TRACE_SHORT_ITERS} iterations",
+          lambda: cg_short(g32), K3_GROUPS)
     trace(f"GN banded-kernel fleet B={FLEET}, 10 iterations",
           lambda: fleet_gn(fleet), FLEET_GROUPS)
-    trace("GN banded-kernel sphere-2500, 10 iterations", lambda: gn3(g3),
-          K12_GROUPS)
+    gn3_short = make_optimize(g3, num_iterations=TRACE_SHORT_ITERS,
+                              backend="banded-kernel", tolerance=0.0,
+                              device=device)
+    trace(f"GN banded-kernel sphere-2500, {TRACE_SHORT_ITERS} iterations",
+          lambda: gn3_short(g3), K12_GROUPS)
     trace(f"LM banded-kernel sphere-2500 fleet B={SPHERE_FLEET}, 6 "
           f"iterations", lambda: lm3_fleet(fleet3), FLEET_GROUPS)
     trace(f"LM gnc-gm banded-kernel corridor-1728-gnc, {GNC_ITERS} "
@@ -5738,6 +5953,7 @@ def smoke(refs, slam_refs, gate) -> int:
         k["parallel_launches"] = par_launches[key]
         k["blocks_launches"] = blk_launches[key]
         k["cli_launches"] = cli_launches[key]
+        k["bench_launches"] = bench_launches[key]
     kernels[0]["gnc_launches"] = gnc_launches["factorize"]
     kernels[1]["gnc_launches"] = gnc_launches["substitute"]
     kernels[3]["gnc_launches"] = gnc_launches["assemble_b1"]

@@ -14,12 +14,14 @@ defaults, as there:
         --file g.g2o --distributed 2 --replicas 2
     python -m rustrobotics_tpu_torch.cli pendulum --plot out.png
     python -m rustrobotics_tpu_torch.cli doctor
+    python -m rustrobotics_tpu_torch.cli bench [--suite] [--suite-out PATH]
 
 ``pgo --distributed N`` runs the map-block optimizer on the process group
 it finds: under ``torchrun`` (``WORLD_SIZE`` in the environment) the
 launcher's ranks, NCCL with one card a rank (gloo with ``--cpu``); alone,
 a group of one rank. N (times the replicas) larger than the group is cut
-to it; ranks beyond the mesh sit the run out.
+to it; ranks beyond the mesh sit the run out. ``bench --suite`` runs its
+sharded families on such a group too.
 """
 
 from __future__ import annotations
@@ -28,12 +30,6 @@ import argparse
 import os
 import sys
 import time
-
-
-def _dataset_root():
-    """Where bundled names are looked up: $RUSTROBOTICS_DATASET, else
-    ./dataset."""
-    return os.environ.get("RUSTROBOTICS_DATASET", "dataset")
 
 
 def _setup(args):
@@ -77,14 +73,14 @@ def cmd_localization(args):
 def cmd_landmarks(args):
     import numpy as np
 
-    from rustrobotics_tpu_torch.data import load_utias
+    from rustrobotics_tpu_torch.data import dataset_root, load_utias
     from rustrobotics_tpu_torch.localization.landmark_replay import (
         ate_vs_groundtruth,
         run_utias_localization,
     )
 
     device, dtype = _setup(args)
-    base = args.dataset or (_dataset_root() + "/utias0")
+    base = args.dataset or (dataset_root() + "/utias0")
     ds = load_utias(base)
     t0 = time.time()
     times, states = run_utias_localization(
@@ -220,12 +216,13 @@ def _distributed_pgo(args, data, solver, device):
 
 
 def cmd_pgo(args):
+    from rustrobotics_tpu_torch.data import dataset_root
     from rustrobotics_tpu_torch.mapping import PoseGraph
 
     device, dtype = _setup(args)
     path = args.file
     if not os.path.exists(path):
-        path = _dataset_root() + "/g2o/" + args.file
+        path = dataset_root() + "/g2o/" + args.file
         if not path.endswith(".g2o"):
             path += ".g2o"
     solver = {"gn": "gauss_newton", "lm": "levenberg_marquardt"}.get(
@@ -288,14 +285,14 @@ def cmd_pendulum(args):
 def cmd_slam(args):
     import numpy as np
 
-    from rustrobotics_tpu_torch.data import load_slam_course
+    from rustrobotics_tpu_torch.data import dataset_root, load_slam_course
     from rustrobotics_tpu_torch.mapping.slam_replay import (
         landmark_map_error,
         run_slam_course,
     )
 
     device, _ = _setup(args)
-    base = args.dataset or (_dataset_root() + "/slam_course")
+    base = args.dataset or (dataset_root() + "/slam_course")
     ds = load_slam_course(base)
     if args.method == "pgo":
         from rustrobotics_tpu_torch.mapping.frontend import (
@@ -410,6 +407,28 @@ def cmd_doctor(args):
     print(f"native C++ g2o parser: {parser}")
 
 
+def cmd_bench(args):
+    """The headline (``bench.main``) or, with ``--suite``, every family
+    of ``benchmarks.run_suite`` on the process group ``_process_group``
+    finds or makes."""
+    device, _ = _setup(args)
+    if args.suite:
+        import torch.distributed as dist
+
+        from rustrobotics_tpu_torch.benchmarks import run_suite
+
+        made = _process_group(device)
+        try:
+            run_suite(device)
+        finally:
+            if made:
+                dist.destroy_process_group()
+        return
+    from rustrobotics_tpu_torch import bench
+
+    bench.main(device, args.suite_out)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="rustrobotics_tpu_torch", description=__doc__,
@@ -517,6 +536,15 @@ def main(argv=None):
 
     sp = sub.add_parser("doctor", help="diagnose the device environment")
     sp.set_defaults(fn=cmd_doctor)
+
+    sp = sub.add_parser("bench", help="run the headline benchmark")
+    sp.add_argument("--suite", action="store_true",
+                    help="run the full criterion-equivalent suite")
+    sp.add_argument("--suite-out", default=None, metavar="PATH",
+                    help="write the headline's suite rows to PATH (JSON)")
+    sp.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the card otherwise)")
+    sp.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

@@ -1,18 +1,23 @@
 """One rank of the port's map-block tier (``parallel.pgo_blocks``) on a gloo
-process group, for ``tests/test_torch_block_{step,optimize,replicas}.py``.
+process group, for ``tests/test_torch_block_{step,optimize,replicas}.py``
+and ``tests/test_torch_entry.py``.
 It holds no tests and imports nothing of JAX: the parent runs JAX, writes
 the inputs, starts every rank of a world as
 
     python tests/test_torch_blocks_worker.py SUITE RANK WORLD STORE IN OUT
 
-(SUITE one of ``step``, ``optimize``, ``replicas``; STORE a file for the
-group's ``file://`` store, IN the inputs' .npz, OUT a directory) and
-compares what the ranks write there (``out_{SUITE}_{WORLD}_{RANK}.npz``).
+(SUITE one of ``step``, ``optimize``, ``replicas``, ``dryrun``; STORE a
+file for the group's ``file://`` store, IN the inputs' .npz, OUT a
+directory) and compares what the ranks write there
+(``out_{SUITE}_{WORLD}_{RANK}.npz``). ``dryrun`` runs
+``entry.dryrun_multichip`` and the benchmarks' distributed rows
+(``bench_rows``) for ``tests/test_torch_entry.py``.
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import os
 import pathlib
 import shutil
@@ -27,6 +32,8 @@ import torch.distributed as dist
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from rustrobotics_tpu_torch import benchmarks  # noqa: E402
+from rustrobotics_tpu_torch.entry import dryrun_multichip  # noqa: E402
 from rustrobotics_tpu_torch.mapping.g2o import (  # noqa: E402
     FLOAT_FIELDS,
     INDEX_FIELDS,
@@ -283,8 +290,26 @@ def collect(procs, suite, worlds, directory, timeout=300):
             for w in worlds for r in range(w)}
 
 
+def bench_rows():
+    """The port's block-scaling and sharded-PF benchmark rows at small
+    sizes on the initialized gloo group (rank 0 has the scaling rows)."""
+    rows = []
+    benchmarks.bench_block_scaling(rows, devices=(1, 2, 4), base_poses=48,
+                                   iters=2, device="cpu")
+    benchmarks.bench_pf_sharded(rows, num_particles=1024, steps=2,
+                                device="cpu")
+    return rows
+
+
+def _dryrun_suite(world, inp, out_dir):
+    """``entry.dryrun_multichip`` on the group (it raises on a failed
+    check), then the benchmark rows."""
+    dryrun_multichip(world, device="cpu")
+    return {"rows": json.dumps(bench_rows())}
+
+
 SUITES = {"step": _step_suite, "optimize": _optimize_suite,
-          "replicas": _replicas_suite}
+          "replicas": _replicas_suite, "dryrun": _dryrun_suite}
 
 
 def main(suite, rank, world, store, inp_path, out_dir):

@@ -102,6 +102,9 @@ def test_port_imports_no_jax():
     assert {"rustrobotics_tpu_torch/parallel/block_layout.py",
             "rustrobotics_tpu_torch/parallel/pgo_blocks.py",
             "rustrobotics_tpu_torch/cli.py",
+            "rustrobotics_tpu_torch/benchmarks.py",
+            "rustrobotics_tpu_torch/bench.py",
+            "rustrobotics_tpu_torch/entry.py",
             "rustrobotics_tpu_torch/examples/distributed_pgo.py",
             "tests/test_torch_blocks_worker.py",
             "tests/test_torch_parallel_worker.py"} <= names

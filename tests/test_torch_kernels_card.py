@@ -523,3 +523,39 @@ def test_k1_keeps_pivots_on_frontend_band(cuda_device):
     k1_bad, plain_bad, _, resid = cs.frontend_k1_check(out, bl, cuda_device)
     assert plain_bad == [] and k1_bad == []
     assert resid <= cs.FE_K1_TOL, resid
+
+
+@pytest.mark.cuda
+def test_bench_graph_slam_runs_the_kernels(cuda_device, tmp_path):
+    """benchmarks.bench_graph_slam on a small corridor (a g2o file from
+    chip_smoke's writer) with banded-kernel launches K4, K1 and K2, gives
+    its row, and banded-kernel's χ² trace tracks banded-direct's
+    (PARITY_TOL["solve"] relative on the entries above 1)."""
+    from rustrobotics_tpu_torch import benchmarks
+    from rustrobotics_tpu_torch.mapping import load_g2o
+
+    cs = _chip_smoke()
+    (tmp_path / "g2o").mkdir()
+    graph = synthetic_corridor_graph_2d(256, num_landmarks=4,
+                                        closure_span=32, device="cpu")
+    path = tmp_path / "g2o" / "corridor256.g2o"
+    path.write_text(cs.g2o_text(cs.graph_spec(graph)))
+    before = {**bk.LAUNCHES, **bak.LAUNCHES}
+    rows = []
+    benchmarks.bench_graph_slam(rows, dataset_root=str(tmp_path),
+                                graphs=("corridor256",),
+                                backends=("banded-kernel",),
+                                device=cuda_device)
+    for key in ("assemble_b1", "factorize", "substitute"):
+        launches = {**bk.LAUNCHES, **bak.LAUNCHES}[key] - before[key]
+        assert launches > 0, key
+    assert [r["metric"] for r in rows] == ["graph_slam_corridor256_banded-kernel"]
+    assert rows[0]["value"] > 0 and 0 < rows[0]["mfu"] <= 1.05
+    g32 = load_g2o(str(path), dtype=torch.float32, device=cuda_device)
+    traces = {b: benchmarks._graph_slam_run(g32, b, 10, cuda_device)(g32)[1]
+              for b in ("banded-kernel", "banded-direct")}
+    want = traces["banded-direct"]
+    big = want > 1.0
+    assert big.sum() >= 2
+    torch.testing.assert_close(traces["banded-kernel"][big], want[big],
+                               rtol=cs.PARITY_TOL["solve"], atol=0)
