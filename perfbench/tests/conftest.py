@@ -1,0 +1,18 @@
+"""Shared helpers of the benchmark's CPU tests: a cell's plan cut to a
+size a test run holds, run on the CPU."""
+
+import pytest
+
+from perfbench import harness
+
+SMALL = {"intel-solve": dict(poses=64, closures=100, max_span=20),
+         "sphere2500-solve": dict(rings=6, per_ring=8)}
+
+
+@pytest.fixture
+def small_plan():
+    def make(cell):
+        p = harness.plan(cell)
+        p["config"] = {**p["config"], **SMALL[cell]}
+        return p
+    return make
