@@ -29,6 +29,7 @@ import torch
 from rustrobotics_tpu_torch.geometry import se2, se3
 from rustrobotics_tpu_torch.mapping import linearize
 from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
+from rustrobotics_tpu_torch.utils.metrics import spanned
 
 PRIOR_WEIGHT = 1e7  # gauge prior
 
@@ -340,6 +341,7 @@ def odometry(fr, to):
     return (to - fr).abs() == 1
 
 
+@spanned("linearize")
 def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
                   robust=None, robust_delta=1.0, robust_alpha=-2.0,
                   mu=None, robust_edges="closures"):
@@ -430,6 +432,7 @@ def dense_hessian(layout: SystemLayout, vals):
     return h.view(vals.shape[:-1] + (n, n))
 
 
+@spanned("update")
 def apply_update(graph: PoseGraphData, dx) -> PoseGraphData:
     """Manifold retraction of every node from a reference-layout dx
     (..., n), batched as the graph."""

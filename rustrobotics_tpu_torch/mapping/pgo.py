@@ -80,6 +80,7 @@ from rustrobotics_tpu_torch.mapping.linearize import (
     residual_pp,
     residual_qq,
 )
+from rustrobotics_tpu_torch.utils.metrics import spanned
 
 BACKENDS = ("auto", "auto-measure", "banded-kernel", "banded-direct",
             "banded-cr", "banded-mixed", "dense", "schur", "host", "native",
@@ -108,6 +109,7 @@ def _edge_chi2(graph: PoseGraphData):
     return out
 
 
+@spanned("update")
 def global_error(graph: PoseGraphData) -> torch.Tensor:
     """Σ e^T Ω e over all edges, a tensor of the graph's batch shape (0-d
     for one graph) on its device."""
@@ -126,6 +128,7 @@ def max_edge_chi2(graph: PoseGraphData) -> torch.Tensor:
     return mx
 
 
+@spanned("update")
 def robust_global_cost(graph: PoseGraphData, robust, delta, alpha=-2.0,
                        mu=None, robust_edges="closures"):
     """Sum of per-edge robust losses rho(e^T Ω e), the objective a robust
@@ -272,6 +275,7 @@ def _make_solve(layout, backend: str, device: torch.device, cg_tol=1e-10,
     return make(layout, device=device) or dense
 
 
+@spanned("request")
 def optimize(
     graph: PoseGraphData,
     num_iterations: int = 50,
@@ -471,6 +475,7 @@ def make_optimize(
         dx = solve(vals, b)
         return apply_update(g, dx), dx
 
+    @spanned("request")
     def run(graph: PoseGraphData):
         g = graph.to(device=device)
         dtype = g.dtype
@@ -590,6 +595,7 @@ def make_optimize_batch(
         return errors.scatter(1, it.clamp(max=n_it)[:, None],
                               value[:, None])
 
+    @spanned("request")
     def run(graph: PoseGraphData):
         g = graph.to(device=device)
         if len(g.batch_shape) != 1:

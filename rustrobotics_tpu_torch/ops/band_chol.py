@@ -80,6 +80,7 @@ from rustrobotics_tpu_torch.ops.batched_tri import (
     chol_blocked,
     tril_inv,
 )
+from rustrobotics_tpu_torch.utils.metrics import span
 
 # The plain band assembly's scatter: "add", "sorted" or "strips".
 BAND_SCATTER_MODE = os.environ.get("RUSTROBOTICS_BAND_SCATTER", "add")
@@ -349,11 +350,19 @@ def solve_banded(bl: BandCholLayout, vals, b, factorize, substitute,
     """The banded solve around an assembly, a factorization and a
     substitution: RCM permutation, Jacobi scaling and padding in,
     unscaling and the inverse permutation out. Runs in vals' dtype; vals
-    (..., nnz) and b (..., n) share their batch shape."""
-    r_blocks, dinv_p = _prepare_blocks(bl, vals, assemble)
-    ldinv, lp = factorize(*split_blocks(r_blocks))
-    xs = substitute(ldinv, lp, scale_rhs(bl, b, dinv_p))
-    return unscale(bl, xs, dinv_p)
+    (..., nnz) and b (..., n) share their batch shape. The three stages
+    are the spans ``band.assemble`` (block rows, padding, scaling, the
+    mirrored diagonal), ``band.factorize`` and ``band.substitute`` (the
+    right-hand side scaled in, the substitution, the unscaling), in the
+    order the device runs them."""
+    with span("band.assemble"):
+        r_blocks, dinv_p = _prepare_blocks(bl, vals, assemble)
+        dsym, lcoup = split_blocks(r_blocks)
+    with span("band.factorize"):
+        ldinv, lp = factorize(dsym, lcoup)
+    with span("band.substitute"):
+        xs = substitute(ldinv, lp, scale_rhs(bl, b, dinv_p))
+        return unscale(bl, xs, dinv_p)
 
 
 # Below this many block rows, the "trsm" chain runs its list form, as in
