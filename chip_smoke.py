@@ -37,13 +37,20 @@ Phases; any failure ends the script with a non-zero exit code:
    λ = 0.01 (SPHERE_PARITY_TOL), K4 on its triplets, K5 and batched K1/K2
    on its fleet of SPHERE_FLEET (the graph and jittered copies). K3 over
    the fleet of 8's bands at λ = 0.01: one launch bit-equal to eight
-   one-graph calls, and within K3_ULPS of the plain version;
+   one-graph calls, and within K3_ULPS of the plain version.
+   L1 (SE2 linearization) on corridor-1728 in f32 at λ = 0 and on the
+   fleet of 8 in f32 with a λ a row (LM_LAMBDA0 2^k): system_values on the
+   kernel path against system_values_plain on the same inputs, vals bit
+   for bit, b within L1_RHS_ULPS max_degree f32 units of each dof's sum of
+   |parts| and bit-equal to the plain version's plan-order gather, χ²
+   within L1_CHI2_RTOL, the same bits on a second call, one LAUNCHES count
+   a call, two device operations a call (torch.profiler);
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    a. make_optimize(backend="banded-kernel") on corridor-1728 in f32,
       Gauss-Newton 10 iterations and Levenberg-Marquardt 6, held to the χ²
       trace of the f64 reference and to the plain banded-direct trace;
-      K4's, K1's and K2's counters must move;
+      K4's, K1's and K2's counters must move, L1's once an iteration;
    b. make_optimize(backend="cg-banded") on corridor-1728 in f32, GN 10 and
       LM 10, cg_tol=1e-6 and cg_maxiter=400 (solve_cg_banded's own
       defaults: f32 never reaches make_optimize's 1e-10), held to the f64
@@ -57,8 +64,8 @@ Phases; any failure ends the script with a non-zero exit code:
       every row's GN errors[0] within 1e-4 of those, errors[1] within
       1e-2 of the unbatched banded-kernel run, errors[10] < 1e-2 (GN past
       the first step is at f32's edge: the rest is printed); K5's counter
-      and one K1 and one K2 launch per fleet iteration, and no plain
-      scatter;
+      and one K1, one K2 and one L1 launch per fleet iteration, and no
+      plain scatter;
    d. sphere-2500 in f32 on banded-kernel, GN 10 and LM 6: errors[0] and
       errors[1] held to the JAX package's f64 anchors, entries above 1 to
       banded-direct on the card, GN errors[10] < 1e-2, the band plan kb=384
@@ -244,7 +251,9 @@ Phases; any failure ends the script with a non-zero exit code:
    of each main path; GN iterations/s end to end for each (and the
    banded-kernel GN's MFU from roofline.pgo_iteration_flops), and the
    fleets' graph-iterations/s against one graph's; K1, K2, K4 and K5 again
-   at sphere-2500's kb = 384;
+   at sphere-2500's kb = 384; L1 on corridor-1728 and the fleet of 8 (calls
+   queued back to back) beside system_values_plain and its bound, and the
+   host's time a call of both;
 6. trace: one GN run of each main path under torch.profiler (cg-banded
    and sphere-2500 GN of TRACE_SHORT_ITERS iterations), device time by
    kernel and the device's idle share; K1's device launches per
@@ -256,7 +265,8 @@ Phases; any failure ends the script with a non-zero exit code:
    and every kernel with filters_launches, slam_launches,
    parallel_launches, blocks_launches and cli_launches, 0: the filter,
    SLAM, vision, control, parallel, blocks and cli phases run none; and
-   bench_launches, the in-process families of the bench phase),
+   bench_launches, the in-process families of the bench phase; L1 with its
+   fleet of 8's readings under *_b8 keys and the launches of every phase),
    then the contract line {"ok": true, "device": {...}}
    last.
 """
@@ -319,7 +329,17 @@ ASSEMBLE_ULPS = 16.0
 # N(0, FLEET_JITTER²) from numpy's default_rng(FLEET_SEED).
 FLEET, FLEET_JITTER, FLEET_SEED = 8, 0.05, 0
 
-SOURCES = ("band_chol", "banded_matvec", "band_assemble")
+SOURCES = ("band_chol", "banded_matvec", "band_assemble", "se2_linearize")
+
+# L1 (the SE2 linearization) against the plain CUDA path on the same f32
+# inputs: vals bit for bit (the same f32 operations in the same order); each
+# dof of b within L1_RHS_ULPS * max_degree f32 units of its sum of |parts|
+# (the plain path's atomic index_add_ and L1's plan-order gather add the
+# same at most max_degree parts in two orders, each within max_degree
+# units of the exact sum); χ² within L1_CHI2_RTOL (a fixed tree against
+# torch.sum's order: the H100 read 0 on corridor-1728 and 6.3e-8 on a
+# landmark graph).
+L1_RHS_ULPS, L1_CHI2_RTOL = 2, 1e-5
 
 # sphere-2500: sphere2500's shape (sphere_graph), its band plan and fleet.
 SPHERE_RINGS, SPHERE_PER_RING = 50, 50
@@ -659,8 +679,9 @@ def _counters():
     from rustrobotics_tpu_torch.ops import band_assemble_kernels as bak
     from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
     from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+    from rustrobotics_tpu_torch.ops import linearize_kernels as lk
 
-    return (bk.LAUNCHES, bmk.LAUNCHES, bak.LAUNCHES)
+    return (bk.LAUNCHES, bmk.LAUNCHES, bak.LAUNCHES, lk.LAUNCHES)
 
 
 def reset_counts():
@@ -1259,6 +1280,9 @@ def main_path(device):
             f"LM errors[1] {err_lm[1]:.6f} within 1% of {LM_CHI2_1}")
     for key in ("assemble_b1", "factorize", "substitute"):
         require(launches[key] > 0, f"{key} kernel launched on the main path")
+    require(launches["se2_linearize"] == it_gn + it_lm,
+            f"se2_linearize launched once an iteration "
+            f"({launches['se2_linearize']} == {it_gn + it_lm})")
     return gn, g32, launches
 
 
@@ -1337,12 +1361,13 @@ def times(p, gn, g32, name="corridor-1728"):
               f"{t['ms'] / t['bound_ms']:.1f}", flush=True)
 
     # stages of one GN iteration on the f32 main path
-    vals32, b32, _ = system_values(g32, 0.0)
+    plan = p["layout"].linearize_plan.to(g32.device)
+    vals32, b32, _ = system_values(g32, 0.0, plan=plan)
     bl = p["bl"]
     dx = bk.solve_band_kernel(bl, vals32, b32)
     stages = {
         "system_values (linearize + assemble)":
-            lambda: system_values(g32, 0.0),
+            lambda: system_values(g32, 0.0, plan=plan),
         "band assembly (_prepare_blocks with K4)":
             lambda: _prepare_blocks(bl, vals32, band_assemble_kernel),
         "K1 factorize": lambda: bk.factorize_kernel(dsym, lcoup),
@@ -1620,7 +1645,7 @@ def cg_times(k3, gn, g32):
     precond = solvers.make_block_jacobi(layout, vals)
     stages = {
         "system_values (linearize + assemble)":
-            lambda: system_values(g32, 0.0),
+            lambda: system_values(g32, 0.0, plan=layout.linearize_plan),
         "band_values": lambda: band_values(blayout, layout, vals),
         "make_block_jacobi": lambda: solvers.make_block_jacobi(layout, vals),
         "one dof-space matvec (permute, pad, K3, unpermute)":
@@ -1922,13 +1947,175 @@ def fleet_path(device, graphs64):
             f"every fleet GN row converged: max errors[10] "
             f"{float(gn[:, 10].max()):.3g} < 1e-2")
     steps = sum(iters.values())
-    for key in ("assemble_batch", "factorize", "substitute"):
+    for key in ("assemble_batch", "factorize", "substitute",
+                "se2_linearize"):
         require(launches[key] == steps,
                 f"{key} launched once a fleet iteration ({launches[key]} == "
                 f"{steps})")
     require(launches["assemble_b1"] == 0 and plain_calls[0] == 0,
             "no one-graph assembly and no plain scatter on the fleet path")
     return runners["gauss_newton"], fleet, launches
+
+
+def rhs_scale(graph):
+    """Per dof of an SE2 graph (or fleet), the sum of |parts| that
+    system_values' index_add_ adds into b."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping import linearize
+
+    *_, bi, bj, _ = linearize.edge_terms_pp_soa(
+        graph.poses2, graph.pp_from, graph.pp_to, graph.pp_z, graph.pp_omega)
+    *_, li, lj, _ = linearize.edge_terms_pl_soa(
+        graph.poses2, graph.landmarks2, graph.pl_pose, graph.pl_lm,
+        graph.pl_z, graph.pl_omega)
+    scale = torch.zeros(graph.batch_shape + (graph.total_dof,),
+                        dtype=graph.dtype, device=graph.device)
+    for off, d, part in ((graph.pose2_offsets[graph.pp_from], 3, bi),
+                         (graph.pose2_offsets[graph.pp_to], 3, bj),
+                         (graph.pose2_offsets[graph.pl_pose], 3, li),
+                         (graph.lm2_offsets[graph.pl_lm], 2, lj)):
+        idx = off[None, :] + torch.arange(d, device=graph.device)[:, None]
+        scale.index_add_(-1, idx.reshape(-1),
+                         part.abs().reshape(graph.batch_shape + (-1,)))
+    return scale
+
+
+def l1_parity(name, graph, lam):
+    """Phase 3 for L1 on an f32 SE2 graph or fleet on the card:
+    system_values on the kernel path against system_values_plain (vals,
+    b, χ² as L1_RHS_ULPS and L1_CHI2_RTOL say), b bit-equal to the plain
+    version's plan-order gather, the same bits on a second call, one
+    LAUNCHES count a call and two device operations (the two kernels, no
+    fill or copy). Returns the graph, λ, the device plan and the
+    errors."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rustrobotics_tpu_torch.mapping.assemble import (
+        PRIOR_WEIGHT,
+        build_layout,
+        system_values,
+        system_values_plain,
+    )
+    from rustrobotics_tpu_torch.ops import linearize_kernels as lk
+
+    plan = build_layout(graph).linearize_plan.to(graph.device)
+    want = system_values_plain(graph, lam)
+    reset_counts()
+    got = system_values(graph, lam, plan=plan)
+    again = system_values(graph, lam, plan=plan)
+    torch.cuda.synchronize()
+    launches = read_counts()["se2_linearize"]
+    _, b_mirror, _ = lk.se2_linearize_plain(graph, lam, PRIOR_WEIGHT, plan)
+    (vals_k, b_k, chi2_k), (vals_p, b_p, chi2_p) = got, want
+    vals_bad = int((vals_k.view(torch.int32)
+                    != vals_p.view(torch.int32)).sum())
+    unit = 2.0 ** -24 * rhs_scale(graph)
+    diff = (b_k - b_p).abs()
+    b_units = float((diff / unit.clamp(min=torch.finfo(unit.dtype).tiny))
+                    .max())
+    b_abs = float(diff.max())
+    b_limit = L1_RHS_ULPS * plan.max_degree
+    mirror_bad = int((b_k.view(torch.int32)
+                      != b_mirror.view(torch.int32)).sum())
+    chi2_rel = float(((chi2_k - chi2_p).abs() / chi2_p.abs()).max())
+    same = all(torch.equal(x, y) for x, y in zip(again, got))
+    calls = 4
+    system_values(graph, lam, plan=plan)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            system_values(graph, lam, plan=plan)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[parity] L1 {name}: batch {tuple(graph.batch_shape)}, "
+          f"{graph.pp_from.shape[0]} pose-pose and {graph.pl_pose.shape[0]} "
+          f"pose-landmark edges, n={graph.total_dof}, max_degree "
+          f"{plan.max_degree}; vals entries differing from the plain path "
+          f"{vals_bad} of {vals_p.numel()}; max|b_kernel - b_plain| "
+          f"{b_abs:.6g} ({b_units:.4g} f32 units of the sum of |parts|, "
+          f"limit {b_limit}); b entries differing from the plan-order "
+          f"gather {mirror_bad}; χ² {chi2_k.double().cpu().tolist()} against "
+          f"{chi2_p.double().cpu().tolist()} ({chi2_rel:.3g} relative); "
+          f"device operations over {calls} calls: {len(ops)}", flush=True)
+    require(vals_bad == 0, f"[parity] L1 {name}: vals bit-equal to the "
+                           f"plain CUDA path")
+    require(b_units <= b_limit, f"[parity] L1 {name}: b within "
+                                f"{b_limit} f32 units of the plain path")
+    require(mirror_bad == 0, f"[parity] L1 {name}: b bit-equal to the "
+                             f"plain version's plan-order gather")
+    require(chi2_rel <= L1_CHI2_RTOL, f"[parity] L1 {name}: χ² within "
+                                      f"{L1_CHI2_RTOL} of the plain path")
+    require(same, f"[parity] L1 {name}: the same bits on a second call")
+    require(launches == 2, f"[parity] L1 {name}: LAUNCHES counts each call")
+    # the profiler can miss the first kernel after it starts (seen on the
+    # card in tests/test_torch_kernels_card.py), so 2 calls - 1 pass; a
+    # third device operation a call would read 3 calls or more
+    require(2 * calls - 1 <= len(ops) <= 2 * calls
+            and all("se2_edge_terms" in n or "se2_rhs_gather" in n
+                    for n in ops),
+            f"[parity] L1 {name}: two device operations a call, the two "
+            f"kernels")
+    return dict(graph=graph, lam=lam, plan=plan, b_abs=b_abs,
+                b_units=b_units, chi2_rel=chi2_rel)
+
+
+def l1_times(l1):
+    """Phase 5 for L1: the kernel's device time a call and its plain
+    version's (system_values_plain), each queued behind a sleep kernel (L2
+    warm, as in the GN loop), beside the bound: every input read once,
+    vals, b and χ² written once, roofline.linearize_flops. No library
+    routine does this step (library_ms None). The host's time a call of
+    each, blocks of 100 calls, is the extra key host_ms / plain_host_ms."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.assemble import (
+        PRIOR_WEIGHT,
+        system_values_plain,
+    )
+    from rustrobotics_tpu_torch.ops import linearize_kernels as lk
+    from rustrobotics_tpu_torch.roofline import linearize_flops
+
+    graph, lam, plan = l1["graph"], l1["lam"], l1["plan"]
+    graphs = math.prod(graph.batch_shape)
+    inputs = sum(t.numel() * t.element_size() for t in (
+        graph.poses2, graph.landmarks2, graph.pp_z, graph.pp_omega,
+        graph.pl_z, graph.pl_omega, graph.pp_from, graph.pp_to,
+        graph.pl_pose, graph.pl_lm))
+    nbytes = inputs + 4 * graphs * (plan.nnz + graph.total_dof + 1)
+    flops = graphs * linearize_flops(graph.pp_from.shape[0],
+                                     graph.pl_pose.shape[0], 0)
+    bound, by = bound_ms(nbytes, flops)
+
+    def kernel():
+        return lk.se2_linearize_kernel(graph, lam, PRIOR_WEIGHT, plan)
+
+    def plain():
+        return system_values_plain(graph, lam)
+
+    def host_ms(fn, calls=100, repeats=5):
+        walls = []
+        for _ in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) / calls * 1e3)
+        return statistics.median(walls)
+
+    out = dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain, calls=5),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               host_ms=host_ms(kernel), plain_host_ms=host_ms(plain))
+    print(f"[times] L1 se2_linearize B={graphs}: kernel {out['ms']:.6f} ms, "
+          f"plain {out['plain_ms']:.6f} ms (device, queued), bound "
+          f"{bound:.6f} ms ({by}; {nbytes:.4g} B, {flops:.4g} FLOP), "
+          f"kernel/bound {out['ms'] / bound:.1f}; host a call (blocks of "
+          f"100): kernel {out['host_ms']:.6f} ms, plain "
+          f"{out['plain_host_ms']:.6f} ms", flush=True)
+    return out
 
 
 def assemble_times(bl, vals):
@@ -1993,6 +2180,7 @@ def fleet_times(fp, bl, gn_fleet, fleet, gn_one, g32):
 
     from rustrobotics_tpu_torch.mapping.assemble import (
         apply_update,
+        build_layout,
         system_values,
     )
     from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
@@ -2001,11 +2189,12 @@ def fleet_times(fp, bl, gn_fleet, fleet, gn_one, g32):
     )
     from rustrobotics_tpu_torch.ops.band_chol import _prepare_blocks
 
-    vals, b, _ = system_values(fleet, 0.0)
+    plan = build_layout(g32).linearize_plan.to(g32.device)
+    vals, b, _ = system_values(fleet, 0.0, plan=plan)
     dx = bk.solve_band_kernel(bl, vals, b)
     stages = {
         "system_values (linearize + assemble)":
-            lambda: system_values(fleet, 0.0),
+            lambda: system_values(fleet, 0.0, plan=plan),
         "band assembly (_prepare_blocks with K5)":
             lambda: _prepare_blocks(bl, vals, band_assemble_kernel),
         "K1 factorize": lambda: bk.factorize_kernel(fp["dsym"], fp["lcoup"]),
@@ -2731,7 +2920,8 @@ def posegraph_phase(device):
             for key in ("assemble_b1", "factorize", "substitute"):
                 require(launches[key] > 0, f"{key} kernel launched on the "
                                            f"{name} PoseGraph path")
-                total[key] = total.get(key, 0) + launches[key]
+            for key, count in launches.items():
+                total[key] = total.get(key, 0) + count
     return total
 
 
@@ -5111,7 +5301,7 @@ def parallel_phase(device):
                 f"of the rows off the single-device resampling")
         require(max(w64[3], w32[3]) == 0,
                 "[parallel] bounded PF: 0 ring rounds at world size 1")
-        print(f"[parallel] K1-K5 launches in this phase: {counts}; "
+        print(f"[parallel] K1-K5 and L1 launches in this phase: {counts}; "
               f"{time.perf_counter() - t_phase:.2f} s", flush=True)
         return counts, {k: res for k, (res, _) in refs.items()}
     finally:
@@ -5281,9 +5471,10 @@ def blocks_phase(device, refs):
             print(f"[trace] {label}: {rounds} CG rounds, "
                   f"{totals['all'][1] / rounds:.1f} device launches a CG "
                   f"round", flush=True)
-        print(f"[blocks] K1-K5 launches in this phase: {counts}; "
+        print(f"[blocks] K1-K5 and L1 launches in this phase: {counts}; "
               f"{time.perf_counter() - t_phase:.2f} s", flush=True)
-        require(not any(counts.values()), "[blocks] K1-K5 launch 0 times")
+        require(not any(counts.values()),
+                "[blocks] K1-K5 and L1 launch 0 times")
         return counts
     finally:
         dist.destroy_process_group()
@@ -5387,9 +5578,9 @@ def cli_phase(device):
             and doc_out.count(": built (") == len(SOURCES),
             "[cli] `cli doctor` exits 0, sees the card and builds every "
             "CUDA source")
-    print(f"[cli] K1-K5 launches of the in-process run: {counts}; "
+    print(f"[cli] K1-K5 and L1 launches of the in-process run: {counts}; "
           f"{time.perf_counter() - t_phase:.2f} s", flush=True)
-    require(not any(counts.values()), "[cli] K1-K5 launch 0 times")
+    require(not any(counts.values()), "[cli] K1-K5 and L1 launch 0 times")
     return counts
 
 
@@ -5501,7 +5692,7 @@ def bench_phase(device):
         counts = read_counts()
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
-        print(f"[bench] {label}: K1-K5 launches {counts} "
+        print(f"[bench] {label}: K1-K5 and L1 launches {counts} "
               f"({time.perf_counter() - t0:.2f} s)", flush=True)
         return counts
 
@@ -5574,7 +5765,8 @@ def bench_phase(device):
         capture_output=True, text=True, check=True).stdout.strip()
     for r in suite + rows:
         print(f"[bench] row {json.dumps(r)}", flush=True)
-    print(f"[bench] K1-K5 launches of the in-process families: {total}; "
+    print(f"[bench] K1-K5 and L1 launches of the in-process families: "
+          f"{total}; "
           f"headline {t_headline:.2f} s, phase "
           f"{time.perf_counter() - t_phase:.2f} s ({smi})", flush=True)
     return total
@@ -5762,6 +5954,13 @@ def smoke(refs, slam_refs, gate) -> int:
     graphs64 = fleet_graphs(device)
     k3b = k3_fleet_parity(graphs64)
     fp = fleet_parity(p1728["bl"], graphs64)
+    from rustrobotics_tpu_torch.mapping.pgo import stack_graphs
+
+    l1 = l1_parity("corridor-1728", corridor(1728, device).to(
+        dtype=torch.float32), 0.0)
+    l1b = l1_parity(f"fleet of {FLEET}", stack_graphs(
+        [g.to(dtype=torch.float32) for g in graphs64]),
+        LM_LAMBDA0 * 2.0 ** torch.arange(FLEET, device=device))
     gn, g32, launches = main_path(device)
     cg_gn, cg_launches = cg_main_path(device, g32)
     fleet_gn, fleet, fleet_launches = fleet_path(device, graphs64)
@@ -5789,7 +5988,8 @@ def smoke(refs, slam_refs, gate) -> int:
     banked_phase(device, utias, refs)
     extra_phase(device, utias, refs)
     filter_launches = read_counts()
-    print(f"[filters] K1-K5 launches on the filter paths: {filter_launches}"
+    print(f"[filters] K1-K5 and L1 launches on the filter paths: "
+          f"{filter_launches}"
           f"; the filter phases took "
           f"{time.perf_counter() - t_filters:.2f} s", flush=True)
     # the SLAM families, vision and control, counters set to 0 around
@@ -5807,7 +6007,8 @@ def smoke(refs, slam_refs, gate) -> int:
         phase(device, slam_refs)
         walls[name] = time.perf_counter() - t0
     slam_launches = read_counts()
-    print(f"[slam] K1-K5 launches on the SLAM, vision and control paths: "
+    print(f"[slam] K1-K5 and L1 launches on the SLAM, vision and control "
+          f"paths: "
           f"{slam_launches}; these phases took "
           f"{time.perf_counter() - t_slam:.2f} s ("
           + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
@@ -5828,6 +6029,8 @@ def smoke(refs, slam_refs, gate) -> int:
     timed["banded_matvec"].update(k3_fleet_times(k3b))
     timed["assemble_b1"] = assemble_times(p1728["bl"], p1728["vals"].float())
     timed["assemble_batch"] = assemble_times(p1728["bl"], fp["vals"])
+    timed["linearize"] = l1_times(l1)
+    timed["linearize_batch"] = l1_times(l1b)
     fleet_times(fp, p1728["bl"], fleet_gn, fleet, gn, g32)
     timed3 = times(p3d, gn3, g3, "sphere-2500")
     timed3["assemble_b1"] = assemble_times(p3d["bl"], p3d["vals"].float())
@@ -5962,10 +6165,41 @@ def smoke(refs, slam_refs, gate) -> int:
                                        + marg3["launches"]["factorize"])
     kernels[3]["marginal_launches"] = (marg["launches"]["assemble_b1"]
                                        + marg3["launches"]["assemble_b1"])
+    # L1, the SE2 linearization (SE3 graphs take the plain code, so it has
+    # no kb = 384 reading; the fleet's under *_b8 keys)
+    kernels.append(dict(
+        name="se2_linearize_f32 (L1)", route="cuda",
+        source="rustrobotics_tpu_torch/csrc/se2_linearize.cu",
+        replaces="none: mapping/assemble.py::system_values' SE2 edges, "
+                 "left to XLA's fusion in the JAX package",
+        launches=launches["se2_linearize"], max_abs_err=l1["b_abs"],
+        fleet_launches=fleet_launches["se2_linearize"],
+        err_measure="max|b_kernel - b_plain|, corridor-1728 f32 at λ = 0 "
+                    "(vals bit-equal); *_b8: the fleet of 8 at LM λs",
+        ms_measure="device ms a call, calls queued back to back (L2 warm); "
+                   "host_ms a call in blocks of 100; library_ms None: no "
+                   "library routine does this step",
+        **timed["linearize"],
+        **{f"{key}_b8": timed["linearize_batch"][key] for key in
+           ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms",
+            "plain_host_ms")},
+        max_abs_err_b8=l1b["b_abs"],
+        bootstrap_launches=boot_launches["se2_linearize"],
+        posegraph_launches=pg_launches["se2_linearize"],
+        frontend_launches=fe_launches["se2_linearize"],
+        filters_launches=filter_launches["se2_linearize"],
+        slam_launches=slam_launches["se2_linearize"],
+        parallel_launches=par_launches["se2_linearize"],
+        blocks_launches=blk_launches["se2_linearize"],
+        cli_launches=cli_launches["se2_linearize"],
+        bench_launches=bench_launches["se2_linearize"],
+        gnc_launches=gnc_launches["se2_linearize"],
+        marginal_launches=(marg["launches"]["se2_linearize"]
+                           + marg3["launches"]["se2_linearize"])))
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "max_abs_err"):
             for name in (key, f"{key}_3d", f"{key}_b8"):
-                if name in k and not math.isfinite(k[name]):
+                if k.get(name) is not None and not math.isfinite(k[name]):
                     fail(f"{k['name']} {name} is not finite")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -382,7 +382,8 @@ def cmd_doctor(args):
         print(f"nvidia-smi: {_smi()}")
         from rustrobotics_tpu_torch.ops import cuda_lib
 
-        for name in ("band_chol", "banded_matvec", "band_assemble"):
+        for name in ("band_chol", "banded_matvec", "band_assemble",
+                     "se2_linearize"):
             try:
                 t0 = time.perf_counter()
                 path = cuda_lib.build(name)

@@ -47,13 +47,14 @@ def _gn_step_fn(graph_template):
 
     layout = build_layout(graph_template)
     device = graph_template.device
+    plan = layout.linearize_plan.to(device)
     rows = torch.as_tensor(np.asarray(layout.rows), dtype=torch.long,
                            device=device)
     cols = torch.as_tensor(np.asarray(layout.cols), dtype=torch.long,
                            device=device)
 
     def gn_step(graph):
-        vals, b, _ = system_values(graph, 0.0)
+        vals, b, _ = system_values(graph, 0.0, plan=plan)
         h = torch.zeros((layout.n, layout.n), dtype=vals.dtype,
                         device=vals.device)
         h.index_put_((rows, cols), vals, accumulate=True)

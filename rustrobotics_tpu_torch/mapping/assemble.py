@@ -16,7 +16,10 @@ to every diagonal.
   each edge's contribution by its IRLS weight (``robust_weight``);
   ``robust_rho`` is the matching loss of the LM accept test;
 - a fleet of same-structure graphs (``pgo.stack_graphs``) runs the same
-  code with a leading batch axis on every value (and on the GNC μ).
+  code with a leading batch axis on every value (and on the GNC μ);
+- on the card an f32 graph with no SE3 edge and no robust kernel (one
+  graph or a fleet) is linearized by one CUDA kernel
+  (``ops/linearize_kernels.py``); every other graph runs the tensor code.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from rustrobotics_tpu_torch.geometry import se2, se3
 from rustrobotics_tpu_torch.mapping import linearize
 from rustrobotics_tpu_torch.mapping.g2o import PoseGraphData
+from rustrobotics_tpu_torch.ops import linearize_kernels
 from rustrobotics_tpu_torch.utils.metrics import spanned
 
 PRIOR_WEIGHT = 1e7  # gauge prior
@@ -86,6 +90,8 @@ class SystemLayout:
     pose_dofs: np.ndarray  # (n_pose_dof,) reference-layout indices
     lm_dofs: np.ndarray  # (n_lm_dof,) reference-layout indices
     dof_compact: np.ndarray  # (n,) index within its own group
+    # where the SE2 linearization kernel writes, and b's incidence plan
+    linearize_plan: linearize_kernels.LinearizePlan
 
     _INDEX_FIELDS = ("rows", "cols", "ell_order", "ell_seg", "ell_pos",
                      "ell_nbr", "dof_block", "dof_pos")
@@ -96,7 +102,8 @@ class SystemLayout:
                  for f in self._INDEX_FIELDS}
         return dataclasses.replace(
             self, pad_eye=torch.as_tensor(np.asarray(self.pad_eye),
-                                          device=device), **moved)
+                                          device=device),
+            linearize_plan=self.linearize_plan.to(device), **moved)
 
 
 def _np(t):
@@ -170,6 +177,12 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
     cols.append(diag)
     lam_slice = slice(prior_slice.stop, prior_slice.stop + diag.size)
 
+    plan = _linearize_plan(((pp_i, 3), (pp_j, 3), (pl_i, 3), (pl_j, 2)),
+                           graph.total_dof,
+                           pl_base=sum(r.size for r in rows[:4]),
+                           prior_base=prior_slice.start,
+                           nnz=lam_slice.stop)
+
     rows_all = np.concatenate(rows).astype(np.int32)
     cols_all = np.concatenate(cols).astype(np.int32)
     n = graph.total_dof
@@ -221,7 +234,27 @@ def build_layout(graph: PoseGraphData) -> SystemLayout:
         pose_dofs=pose_dofs,
         lm_dofs=lm_dofs,
         dof_compact=dof_compact,
+        linearize_plan=plan,
     )
+
+
+def _linearize_plan(ends, n: int, pl_base: int, prior_base: int, nnz: int):
+    """The SE2 kernel's plan: the triplet offsets, and b's incidence
+    plan over ``ends``, the (first-dof offsets, dofs) of the pose-pose b_i,
+    b_j and pose-landmark b_i, b_j parts in ``system_values_plain``'s
+    index_add_ order. Every endpoint's dofs appear once, each in its dof's
+    row; a row lists its parts in ascending order (a stable sort of their
+    destinations), the order index_add_ adds them on the CPU."""
+    dest = np.concatenate([
+        (offsets[None, :] + np.arange(d)[:, None]).ravel()
+        for offsets, d in ends]).astype(np.int64)
+    counts = np.bincount(dest, minlength=n)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    return linearize_kernels.LinearizePlan(
+        ptr=ptr.astype(np.int32),
+        src=np.argsort(dest, kind="stable").astype(np.int32),
+        max_degree=int(counts.max(initial=0)), pl_base=pl_base,
+        prior_base=prior_base, nnz=nnz)
 
 
 def _add_rhs(bvec, offsets, comp):
@@ -344,7 +377,7 @@ def odometry(fr, to):
 @spanned("linearize")
 def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
                   robust=None, robust_delta=1.0, robust_alpha=-2.0,
-                  mu=None, robust_edges="closures"):
+                  mu=None, robust_edges="closures", plan=None):
     """Flat triplet values (aligned with build_layout) + RHS b (negated)
     + total χ². ``lam`` is a number or a tensor of the graph's batch shape
     (0-d for one graph). A fleet gives vals (B, nnz), b (B, n) and χ²
@@ -356,7 +389,31 @@ def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
     ``mu`` the GNC continuation parameter (a number, or a tensor of the
     batch shape). ``robust_edges="closures"`` keeps odometry pose-pose
     edges (|to - from| = 1) at L2; "all" robustifies every edge. The
-    returned χ² stays the raw quadratic error."""
+    returned χ² stays the raw quadratic error.
+
+    A CUDA f32 graph with no SE3 edge and ``robust=None`` takes the SE2
+    kernel (``linearize_kernels.takes_kernel``): the same vals bit for bit,
+    b and χ² summed in a fixed order. It writes where ``plan`` says, the
+    graph's ``build_layout(graph).linearize_plan``: a caller that
+    linearizes one structure many times passes it (moved to the card
+    once); without it this call builds the layout. Every other graph
+    takes ``system_values_plain`` and ignores ``plan``."""
+    if linearize_kernels.takes_kernel(graph.device, graph.dtype,
+                                      graph.qq_from.shape[0], robust):
+        if plan is None:
+            plan = build_layout(graph).linearize_plan
+        return linearize_kernels.se2_linearize_kernel(graph, lam,
+                                                      prior_weight, plan)
+    return system_values_plain(graph, lam, prior_weight, robust,
+                               robust_delta, robust_alpha, mu, robust_edges)
+
+
+def system_values_plain(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
+                        robust=None, robust_delta=1.0, robust_alpha=-2.0,
+                        mu=None, robust_edges="closures"):
+    """``system_values`` in tensor code, on any device and dtype, every
+    edge type and robust kernel: the plain version the CPU runs and the
+    SE2 kernel is held to on the card."""
     dtype, device = graph.dtype, graph.device
     batch = graph.batch_shape
     n = graph.total_dof

@@ -191,7 +191,7 @@ def _measure_backend(graph_template: PoseGraphData, layout, device):
     skipped. Skipping it would hide a kernel that failed to build or
     launch, so the exception propagates."""
     g = graph_template.to(device=device)
-    vals, b, _ = system_values(g, 0.0)
+    vals, b, _ = system_values(g, 0.0, plan=layout.linearize_plan)
     candidates = {"banded-direct": solvers.make_banded_direct,
                   "banded-cr": solvers.make_banded_cr,
                   "banded-mixed": solvers.make_banded_mixed}
@@ -301,6 +301,7 @@ def optimize(
     device = resolve_device(device)
     graph = graph.to(device=device)
     layout = build_layout(graph)
+    plan = layout.linearize_plan.to(device)
     dtype = graph.dtype
     backend, _ = _resolve_backend(graph, layout, backend, device)
     solve_fn = _make_solve(layout, backend, device)
@@ -330,7 +331,8 @@ def optimize(
     for it in range(1, num_iterations + 1):
         vals, b, _ = system_values(graph, lam if lm else 0.0, prior_weight,
                                    robust=robust, robust_delta=robust_delta,
-                                   robust_alpha=robust_alpha, mu=mu)
+                                   robust_alpha=robust_alpha, mu=mu,
+                                   plan=plan)
         dx = solve_fn(vals, b).to(dtype)
         prev_graph = graph
         graph = apply_update(graph, dx)
@@ -430,6 +432,7 @@ def make_optimize(
         raise ValueError(f"jit path needs a device backend, got {backend!r}")
     device = resolve_device(device)
     layout = build_layout(graph_template)
+    plan = layout.linearize_plan.to(device)
     backend, times = _resolve_backend(graph_template, layout, backend, device)
     solve = _make_solve(layout, backend, device, cg_tol=cg_tol,
                         cg_maxiter=cg_maxiter)
@@ -437,7 +440,7 @@ def make_optimize(
     gnc = robust == "gnc-gm"
     k_gnc = gnc_iterations(num_iterations)
     robust_kw = dict(robust=robust, robust_delta=robust_delta,
-                     robust_alpha=robust_alpha)
+                     robust_alpha=robust_alpha, plan=plan)
 
     def step_lm(g, lam, last_error, mu, errors, it):
         vals, b, _ = system_values(g, lam, prior_weight, mu=mu, **robust_kw)
@@ -574,6 +577,7 @@ def make_optimize_batch(
                          f"{backend!r}")
     device = resolve_device(device)
     layout = build_layout(graph_template)
+    plan = layout.linearize_plan.to(device)
     backend, times = _resolve_backend(graph_template, layout, backend, device)
     solve = _make_solve(layout, backend, device, cg_tol=cg_tol,
                         cg_maxiter=cg_maxiter)
@@ -582,7 +586,7 @@ def make_optimize_batch(
     n_it = num_iterations
     k_gnc = gnc_iterations(num_iterations)
     robust_kw = dict(robust=robust, robust_delta=robust_delta,
-                     robust_alpha=robust_alpha)
+                     robust_alpha=robust_alpha, plan=plan)
 
     def select(active, new, old):
         """new where the row is active, else old (rows on the first axis)."""
@@ -722,7 +726,7 @@ def linearize_and_solve(graph: PoseGraphData, backend: str = "host",
     ``solvers.SOLVERS`` (the oracle of the reference's single step)."""
     graph = graph.to(device=resolve_device(device))
     layout = build_layout(graph)
-    vals, b, _ = system_values(graph, 0.0)
+    vals, b, _ = system_values(graph, 0.0, plan=layout.linearize_plan)
     return solvers.SOLVERS[backend](layout, vals, b)
 
 
@@ -740,7 +744,8 @@ def _marginal_system(graph, robust, robust_delta, device):
     graph = graph.to(device=resolve_device(device))
     layout = build_layout(graph)
     vals, _, _ = system_values(graph, 0.0, robust=robust,
-                               robust_delta=robust_delta)
+                               robust_delta=robust_delta,
+                               plan=layout.linearize_plan)
     bl = build_band_chol(layout)
     chain = (dict(factorize=factorize_kernel, assemble=band_assemble_kernel)
              if vals.dtype == torch.float32 else {})

@@ -15,6 +15,7 @@ import pathlib
 import pytest
 import torch
 
+from rustrobotics_tpu_torch.mapping import assemble, linearize
 from rustrobotics_tpu_torch.mapping.assemble import build_layout, system_values
 from rustrobotics_tpu_torch.mapping.pgo import (
     make_optimize,
@@ -26,6 +27,7 @@ from rustrobotics_tpu_torch.ops import band_assemble_kernels as bak
 from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
 from rustrobotics_tpu_torch.ops import banded
 from rustrobotics_tpu_torch.ops import banded_kernels as bmk
+from rustrobotics_tpu_torch.ops import linearize_kernels as lk
 from rustrobotics_tpu_torch.ops.band_chol import build_band_chol, solve_band_chol
 
 
@@ -559,3 +561,148 @@ def test_bench_graph_slam_runs_the_kernels(cuda_device, tmp_path):
     assert big.sum() >= 2
     torch.testing.assert_close(traces["banded-kernel"][big], want[big],
                                rtol=cs.PARITY_TOL["solve"], atol=0)
+
+
+def _se2_case(device, name):
+    """(graph, λ) of the SE2 linearization kernel's cases, f32 on the card:
+    an Intel-sized corridor (1728 poses, a closure a pose), a landmark
+    graph, a fleet of 8, and LM's λ as a tensor for a fleet of 3 (a λ a
+    row) and for one graph (0-d)."""
+    if name == "corridor1728":
+        return synthetic_corridor_graph_2d(
+            1728, closure_stride=1, closure_span=64, device=device,
+            dtype=torch.float32), 0.0
+    if name == "landmarks":
+        return synthetic_corridor_graph_2d(
+            512, num_landmarks=32, closure_span=32, device=device,
+            dtype=torch.float32), 0.01
+    if name == "fleet8":
+        return _fleet(device, batch=8, num_landmarks=8)[1], 0.0
+    if name == "lm_fleet3":
+        return _fleet(device)[1], torch.tensor([0.01, 0.02, 0.04],
+                                               device=device)
+    g, _ = _se2_case(device, "landmarks")
+    return g, torch.tensor(0.005, device=device)
+
+
+def _rhs_scale(graph):
+    """Per dof, the sum of |parts| that index_add_ adds into b."""
+    *_, bi, bj, _ = linearize.edge_terms_pp_soa(
+        graph.poses2, graph.pp_from, graph.pp_to, graph.pp_z, graph.pp_omega)
+    *_, li, lj, _ = linearize.edge_terms_pl_soa(
+        graph.poses2, graph.landmarks2, graph.pl_pose, graph.pl_lm,
+        graph.pl_z, graph.pl_omega)
+    scale = torch.zeros(graph.batch_shape + (graph.total_dof,),
+                        device=graph.device)
+    for off, d, part in ((graph.pose2_offsets[graph.pp_from], 3, bi),
+                         (graph.pose2_offsets[graph.pp_to], 3, bj),
+                         (graph.pose2_offsets[graph.pl_pose], 3, li),
+                         (graph.lm2_offsets[graph.pl_lm], 2, lj)):
+        idx = off[None, :] + torch.arange(d, device=graph.device)[:, None]
+        scale.index_add_(-1, idx.reshape(-1),
+                         part.abs().reshape(graph.batch_shape + (-1,)))
+    return scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["corridor1728", "landmarks", "fleet8",
+                                  "lm_fleet3", "lm_one"])
+def test_se2_linearize_matches_plain(cuda_device, name):
+    """system_values on the kernel path against the plain CUDA path
+    (system_values_plain): vals bit for bit (the same f32 operations in the
+    same order); b bit for bit equal to the plain version's plan-order
+    gather on the card, and within 2 max_degree f32 units of each dof's
+    sum of |parts| of the plain path's atomic index_add_ (two orders of at
+    most max_degree terms); χ² within 1e-5 relative (a fixed tree against
+    torch.sum's order, each ~20 units deep); the same bits on a second
+    call; one LAUNCHES count a call."""
+    graph, lam = _se2_case(cuda_device, name)
+    plan = build_layout(graph).linearize_plan.to(cuda_device)
+    vals_p, b_p, chi2_p = assemble.system_values_plain(graph, lam)
+    before = lk.LAUNCHES["se2_linearize"]
+    vals_k, b_k, chi2_k = system_values(graph, lam, plan=plan)
+    again = system_values(graph, lam, plan=plan)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["se2_linearize"] == before + 2
+    for got, want in ((vals_k, vals_p), (b_k, b_p), (chi2_k, chi2_p)):
+        assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(vals_k.view(torch.int32), vals_p.view(torch.int32))
+    _, b_m, _ = lk.se2_linearize_plain(graph, lam, assemble.PRIOR_WEIGHT,
+                                       plan)
+    assert torch.equal(b_k.view(torch.int32), b_m.view(torch.int32))
+    tol = 2 * plan.max_degree * 2.0 ** -24 * _rhs_scale(graph)
+    assert bool(((b_k - b_p).abs() <= tol).all())
+    torch.testing.assert_close(chi2_k, chi2_p, rtol=1e-5, atol=0)
+    for got, first in zip(again, (vals_k, b_k, chi2_k)):
+        assert torch.equal(got, first)
+
+
+@pytest.mark.cuda
+def test_se2_linearize_rejects_bad_input(cuda_device):
+    graph, _ = _se2_case(cuda_device, "landmarks")
+    w = assemble.PRIOR_WEIGHT
+    plan = build_layout(graph).linearize_plan
+    with pytest.raises(ValueError, match="float32"):
+        lk.se2_linearize_kernel(graph.to(dtype=torch.float64), 0.0, w, plan)
+    with pytest.raises(ValueError, match="must be on"):
+        lk.se2_linearize_kernel(graph.replace(pp_z=graph.pp_z.cpu()), 0.0, w,
+                                plan)
+    with pytest.raises(ValueError, match="int64"):
+        lk.se2_linearize_kernel(graph.replace(pl_lm=graph.pl_lm.int()), 0.0,
+                                w, plan)
+    with pytest.raises(ValueError, match="SE3"):
+        lk.se2_linearize_kernel(graph.replace(
+            qq_from=torch.zeros(1, dtype=torch.long, device=cuda_device)),
+            0.0, w, plan)
+    other, _ = _se2_case(cuda_device, "corridor1728")
+    with pytest.raises(ValueError, match="not this graph's"):
+        lk.se2_linearize_kernel(graph, 0.0, w,
+                                build_layout(other).linearize_plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["corridor1728", "fleet8"])
+def test_se2_linearize_is_two_device_ops(cuda_device, name):
+    """system_values on the kernel path runs the two kernels and nothing
+    else on the device (counted by torch.profiler over 4 calls): no fill,
+    copy or memset. The profiler can miss the first kernel after it
+    starts (seen on the card in a full run of this file), so 7 events
+    pass; a third device operation a call would give 11 or 12."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph, lam = _se2_case(cuda_device, name)
+    plan = build_layout(graph).linearize_plan.to(cuda_device)
+    system_values(graph, lam, plan=plan)
+    torch.cuda.synchronize()
+    calls = 4
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            system_values(graph, lam, plan=plan)
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 2 * calls - 1 <= len(dev) <= 2 * calls, dev
+    assert all("se2_edge_terms" in n or "se2_rhs_gather" in n
+               for n in dev), dev
+
+
+@pytest.mark.cuda
+def test_gn10_runs_the_se2_kernel_every_iteration(cuda_device, monkeypatch):
+    """make_optimize(banded-kernel, GN 10, f32, tolerance 0), the shape of
+    the benchmark's request, on an Intel-sized corridor: the kernel runs
+    once an iteration, and the χ² trace tracks the plain path's."""
+    graph, _ = _se2_case(cuda_device, "corridor1728")
+    run = make_optimize(graph, num_iterations=10, backend="banded-kernel",
+                        tolerance=0.0)
+    before = lk.LAUNCHES["se2_linearize"]
+    _, err_k, it = run(graph)
+    torch.cuda.synchronize()
+    assert it == 10
+    assert lk.LAUNCHES["se2_linearize"] == before + 10
+    monkeypatch.setattr(lk, "takes_kernel", lambda *args: False)
+    _, err_p, _ = run(graph)
+    assert lk.LAUNCHES["se2_linearize"] == before + 10
+    big = err_p > 1.0
+    assert big.sum() >= 2
+    torch.testing.assert_close(err_k[big], err_p[big], rtol=1e-2, atol=0)
+    assert float(err_k[-1]) <= 1e-2 * float(err_k[0])
