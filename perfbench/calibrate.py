@@ -6,17 +6,18 @@
 In one process on the card: the cell's optimizer is built once; for each
 of ``--seeds`` seeds from ``--first-seed`` on, the guess pool of that seed
 is drawn and as many requests as a run compares are sent back to back
-(the window's own call at its own load), and their answers are compared
-with the f64 reference, as a run compares them. Then each of
+(the window's own call at its own load: one guess, or one fleet of B, a
+request), and every row of their answers is compared with the f64
+reference, as a run compares them. Then each of
 ``--controls``: the reference in that precision
 (``reference.<name>.Problem(precision=...)``: ``tf32``, the control, and
 ``tf32-cholesky``, the program's method in TF32) put in the program's
 place on the same guesses of the first ``--control-seeds`` seeds,
-compared the same way. A control that gives NaN has failed and sets no
-upper reading. Prints one JSON line a seed and side (the worst
-of each number, and each request's chi^2 trace beside the reference's),
-and the largest program reading and smallest control reading of each
-number.
+compared the same way. A control that gives NaN, or whose factorization
+raises, has failed and sets no upper reading. Prints one JSON line a seed
+and side (the worst of each number, the seconds of each reference solve,
+and each answer's chi^2 trace beside the reference's), and the largest
+program reading and smallest control reading of each number.
 """
 
 from __future__ import annotations
@@ -27,7 +28,23 @@ import math
 import sys
 import time
 
+import numpy as np
+
 from perfbench import check, harness
+
+
+def control_answer(low, guess, iterations):
+    """The answer (final poses, chi^2 trace) of the reference ``low`` put
+    in the program's place, on the host. A control whose factorization
+    raises (an exactly zero pivot) has failed: its answer is NaN."""
+    import torch
+
+    try:
+        cp, ct = low.solve(guess, iterations)
+    except torch.linalg.LinAlgError:
+        return (np.full(tuple(guess.shape), np.nan),
+                [math.nan] * (iterations + 1))
+    return cp.double().cpu().numpy(), ct
 
 
 def readings(p, seeds, device, control=None):
@@ -45,23 +62,26 @@ def readings(p, seeds, device, control=None):
     for seed in seeds:
         pool = gen.guesses(cfg, struct, seed, t["pool"], device).to(
             pool.dtype)
-        gaps, traces = [], []
+        gaps, traces, ref_s = [], [], []
         for j in range(t["check_requests"]):
-            t0 = time.perf_counter()
-            rp, rt = ref.solve(pool[j].double(), t["num_iterations"])
-            ref_s = time.perf_counter() - t0
+            idx = harness.rows(t, j)
             if control:
-                cp, ct = low.solve(pool[j], t["num_iterations"])
-                answer = (cp.double().cpu().numpy(), ct)
+                answers = [control_answer(low, pool[i], t["num_iterations"])
+                           for i in idx]
             else:
-                g = graphs[0].replace(**{struct["node_field"]: pool[j]})
-                req = harness._request(run, g, device)
-                answer = (req.poses.double().cpu().numpy(),
-                          req.trace.double().cpu().numpy())
-            gaps.append(check.gaps(*answer, rp.cpu().numpy(), rt,
-                                   ref.chi2(answer[0])))
-            traces.append({"trace": [float(v) for v in answer[1]],
-                           "reference": [float(v) for v in rt]})
+                guesses = pool[idx] if "fleet" in t else pool[idx[0]]
+                g = graphs[j % len(graphs)].replace(
+                    **{struct["node_field"]: guesses})
+                answers = harness.row_answers(
+                    t, harness._request(run, g, device))
+            for i, answer in zip(idx, answers):
+                t0 = time.perf_counter()
+                rp, rt = ref.solve(pool[i].double(), t["num_iterations"])
+                ref_s.append(time.perf_counter() - t0)
+                gaps.append(check.gaps(*answer, rp.cpu().numpy(), rt,
+                                       ref.chi2(answer[0])))
+                traces.append({"trace": [float(v) for v in answer[1]],
+                               "reference": [float(v) for v in rt]})
         worst = check.worst(gaps)
         out[seed] = worst
         print(json.dumps({"side": control or "program",

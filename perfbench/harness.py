@@ -7,7 +7,9 @@ is a file of its own, found by the name ``BENCHMARK.json`` gives it:
   ``gen/<generator>.py``, its reference in ``reference/<reference>.py``,
   its fixed work counts);
 - ``traffic/<traffic>.json``: the traffic mix, read by the one closed loop
-  below;
+  below: the loop (``fleet``: B graphs a request, one
+  ``make_optimize_batch`` call; absent: one graph, ``make_optimize``) and
+  the optimizer's keyword arguments (``options``);
 - ``workloads/<cell>.json``: the cell's configuration, traffic, the limits
   of its correctness check, and why it exists;
 - ``e2e/<metric>.py`` and ``metrics/<metric>.py``: one reader a metric, a
@@ -20,9 +22,10 @@ or in every cell without that key; a per-layer metric in the cells its
 end-to-end metric it ``moves``.
 
 A run: set-up (the graph structure, the pool of guesses drawn from the
-seed on the device, ``make_optimize`` built once, the warm requests),
-then the window (a closed loop with one client: each request is
-``run(guess)`` ended by a synchronize, the next sent when it returns,
+seed on the device, stacked into fleets of B in pool order for a fleet
+cell, the optimizer built once, the warm requests), then the window (a
+closed loop with one client: each request is ``run(graph)`` on one guess
+or one fleet, ended by a synchronize, the next sent when it returns,
 cycling through the pool),
 then, with ``trace``, the profiler over a fixed slice of the window's
 requests, and after the window the correctness check against the plain
@@ -146,12 +149,41 @@ def _sync(device):
 
 
 def _optimizer(p, template, device):
+    """``make_optimize_batch`` for a fleet cell, ``make_optimize``
+    otherwise, with the traffic's ``options`` as keyword arguments."""
     from rustrobotics_tpu_torch.mapping import pgo
 
     t = p["traffic"]
-    return pgo.make_optimize(
+    make = pgo.make_optimize_batch if "fleet" in t else pgo.make_optimize
+    return make(
         template, num_iterations=t["num_iterations"], solver=t["solver"],
-        backend=t["backend"], tolerance=t["tolerance"], device=device)
+        backend=t["backend"], tolerance=t["tolerance"], device=device,
+        **t.get("options", {}))
+
+
+def rows(traffic, i):
+    """The pool indices of request i's graphs, in row order: guess
+    i mod pool, or row b of fleet f = i mod (pool / B) is guess f·B + b."""
+    b = traffic.get("fleet", 1)
+    f = i % (traffic["pool"] // b)
+    return list(range(f * b, (f + 1) * b))
+
+
+def request_graphs(template, struct, pool, traffic):
+    """The graphs the requests cycle through: one a guess of ``pool``, or
+    for a fleet cell its pool / B fleets (``pgo.stack_graphs``)."""
+    field = struct["node_field"]
+    graphs = [template.replace(**{field: guess}) for guess in pool]
+    if "fleet" not in traffic:
+        return graphs
+    from rustrobotics_tpu_torch.mapping import pgo
+
+    b = traffic["fleet"]
+    if b < 1 or len(pool) % b:
+        raise ValueError(f"a pool of {len(pool)} does not split into "
+                         f"fleets of {b}")
+    return [pgo.stack_graphs(graphs[f:f + b])
+            for f in range(0, len(pool), b)]
 
 
 def setup(p, seed, device):
@@ -169,8 +201,7 @@ def setup(p, seed, device):
                                 struct["prior2"], struct["prior3"],
                                 device=device, dtype=dtype)
     pool = gen.guesses(cfg, struct, seed, t["pool"], device).to(dtype)
-    graphs = [template.replace(**{struct["node_field"]: pool[i]})
-              for i in range(t["pool"])]
+    graphs = request_graphs(template, struct, pool, t)
     run = _optimizer(p, template, device)
     for i in range(t["warm_requests"]):
         run(graphs[i % len(graphs)])
@@ -179,12 +210,15 @@ def setup(p, seed, device):
 
 
 def _request(run, graph, device):
+    """One request; its iterations are graph-iterations, summed over a
+    fleet's rows."""
     start = time.perf_counter()
     g, errors, it = run(graph)
     _sync(device)
     end = time.perf_counter()
     poses = g.poses3 if g.is_3d else g.poses2
-    return Request(start, end, int(it), poses, errors)
+    iterations = it if isinstance(it, int) else sum(it.tolist())
+    return Request(start, end, iterations, poses, errors)
 
 
 def window(run, graphs, seconds, device, traffic, traced):
@@ -217,28 +251,38 @@ def window(run, graphs, seconds, device, traffic, traced):
     return requests, t0, requests[-1].end, prof, sliced
 
 
+def row_answers(traffic, request):
+    """A request's answer on the host, one (final poses, chi^2 trace) a
+    row."""
+    poses = request.poses.double().cpu().numpy()
+    trace = request.trace.double().cpu().numpy()
+    if "fleet" not in traffic:
+        return [(poses, trace)]
+    return list(zip(poses, trace))
+
+
 def sample_answers(p, requests, pool, seed):
-    """(failed, answers, guesses): the requests whose chi^2 trace is not
-    finite; the answers of a sample of the requests drawn from the seed,
-    each (pool index, final poses, trace) on the host; the sampled
-    guesses on the host."""
+    """(failed, answers, guesses): the requests with a chi^2 trace that is
+    not finite in any row; the answers of a sample of the requests drawn
+    from the seed, one a row of each (pool index, final poses, trace) on
+    the host; the sampled guesses on the host."""
     import torch
 
-    finite = torch.stack([r.trace for r in requests]).isfinite().all(-1)
-    failed = int((~finite).sum())
-    k = min(p["traffic"]["check_requests"], len(requests))
+    t = p["traffic"]
+    finite = torch.stack([r.trace for r in requests]).isfinite()
+    failed = int((~finite.flatten(1).all(-1)).sum())
+    k = min(t["check_requests"], len(requests))
     rng = np.random.default_rng(seed)
     sample = sorted(rng.choice(len(requests), size=k, replace=False))
-    answers = [(i % len(pool),
-                requests[i].poses.double().cpu().numpy(),
-                requests[i].trace.double().cpu().numpy()) for i in sample]
+    answers = [(j, *a) for i in sample
+               for j, a in zip(rows(t, i), row_answers(t, requests[i]))]
     guesses = {j: pool[j].double().cpu() for j, _, _ in answers}
     return failed, answers, guesses
 
 
 def compare_answers(p, struct, answers, guesses, device):
-    """Run the reference on each sampled guess; the worst of each number
-    over the sample."""
+    """Run the reference once on each sampled guess; the worst of each
+    number over the sample's answers."""
     ref = reference(p["config"]).Problem(struct, device, "f64")
     iters = p["traffic"]["num_iterations"]
     solved = {}

@@ -39,11 +39,30 @@ def test_control_fails_the_limits(control):
     assert not ok, checks
 
 
+def test_control_that_raises_has_failed():
+    """A control whose factorization raises (an exactly zero pivot, as
+    the TF32 Cholesky meets on some intel-1728 guesses) gives a NaN
+    answer, which the limits judge not correct."""
+    class ZeroPivot:
+        def solve(self, guess, iterations):
+            raise torch.linalg.LinAlgError("the diagonal element is zero")
+
+    guess = torch.zeros(12, 3)
+    poses, trace = calibrate.control_answer(ZeroPivot(), guess, 10)
+    assert poses.shape == (12, 3) and len(trace) == 11
+    numbers = check.gaps(poses, trace, guess.double().numpy(), [1.0] * 11,
+                         float("nan"))
+    limits = harness.plan("intel-fleet8")["workload"]["limits"]
+    assert not check.judge(numbers, limits)[0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["intel-solve", "sphere2500-solve"])
+@pytest.mark.parametrize("cell", ["intel-solve", "sphere2500-solve",
+                                  "intel-fleet8"])
 def test_controls_fail_on_card(cell):
     """At the cell's own size, on three seeds: the program's answers pass
-    the limits and each control's fail them."""
+    the limits and each control's fail them (of a fleet cell, every row
+    of the requests a run compares)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     p = harness.plan(cell)

@@ -83,6 +83,8 @@ import json
 from perfbench import harness, kernels, trace
 p = harness.plan("intel-tiny")
 r = harness.run_cell(p, 3, 0.2, False, "cpu", log=lambda s: None)
+fleet = harness.plan("intel-tiny-fleet")
+rf = harness.run_cell(fleet, 5, 0.2, False, "cpu", log=lambda s: None)
 names = kernels.FACTOR + kernels.SUBST + kernels.ASSEMBLY + ("elementwise",)
 device = [(n, 10.0 * k, 10.0 * k + 5.0) for k, n in enumerate(names)]
 host = [(trace.SLICE, 0.0, 100.0), ("cudaLaunchKernel", 1.0, 2.0)]
@@ -91,7 +93,11 @@ s.iterations = 2
 layer = {m["name"]: harness.reader("metrics", m["name"]).read(s, p["config"])
          for m in p["per_layer"]}
 print(json.dumps({"e2e": sorted(r["metrics"]), "layer": layer,
-                  "poses": p["config"]["poses"], "correct": r["correct"]}))
+                  "poses": p["config"]["poses"], "correct": r["correct"],
+                  "fleet_e2e": sorted(rf["metrics"]),
+                  "fleet_traffic": fleet["traffic"],
+                  "fleet_checks": rf["checks"],
+                  "fleet_correct": rf["correct"]}))
 '''
 
 
@@ -101,7 +107,9 @@ def test_new_files_found_without_code_edit(tmp_path):
     per-layer metrics it reports are data. The new cell then reports the
     existing per-layer metrics, a new one that lists it, and a new one
     without a list (by the end-to-end metric it moves), whose name holds
-    a dot; no file already in perfbench/ changes."""
+    a dot. A fleet traffic file, with optimizer options, and a cell that
+    runs it are files too, and the fleet cell runs correct; no file
+    already in perfbench/ changes."""
     shutil.copytree(harness.PKG, tmp_path / "perfbench",
                     ignore=shutil.ignore_patterns("_cache", "__pycache__"))
     pkg = tmp_path / "perfbench"
@@ -112,6 +120,13 @@ def test_new_files_found_without_code_edit(tmp_path):
     cell = harness.load_json(pkg / "workloads" / "intel-solve.json")
     cell.update(name="intel-tiny", config="intel-tiny-cfg")
     (pkg / "workloads" / "intel-tiny.json").write_text(json.dumps(cell))
+    fleet_traffic = harness.load_json(pkg / "traffic" / "closed-gn10.json")
+    fleet_traffic.update(fleet=2, pool=4, options={"cg_tol": 1e-6})
+    (pkg / "traffic" / "closed-fleet2-tiny.json").write_text(
+        json.dumps(fleet_traffic))
+    cell.update(name="intel-tiny-fleet", traffic="closed-fleet2-tiny")
+    (pkg / "workloads" / "intel-tiny-fleet.json").write_text(
+        json.dumps(cell))
     (pkg / "e2e" / "solve_ms_p50.py").write_text(NEW_METRIC)
     (pkg / "metrics" / "busy_s.tiny.py").write_text(NEW_LAYER)
     (pkg / "metrics" / "busy_seconds.py").write_text(NEW_LAYER)
@@ -125,6 +140,10 @@ def test_new_files_found_without_code_edit(tmp_path):
     spec["workloads"].append({"name": "intel-tiny", "config":
                               "intel-tiny-cfg", "traffic": "closed-gn10",
                               "chips": 1, "why": "test"})
+    spec["workloads"].append({"name": "intel-tiny-fleet", "config":
+                              "intel-tiny-cfg", "traffic":
+                              "closed-fleet2-tiny", "chips": 1,
+                              "why": "test"})
     spec["end_to_end"].append({"name": "solve_ms_p50", "unit": "ms",
                                "better": "lower", "bound": 0.05,
                                "source": "host_clock",
@@ -148,4 +167,7 @@ def test_new_files_found_without_code_edit(tmp_path):
     assert all(v is not None and v > 0 for v in got["layer"].values())
     assert got["e2e"] == ["graph_iters_per_s", "setup_s", "solve_ms_p50"]
     assert got["poses"] == 48 and got["correct"]
+    assert got["fleet_e2e"] == ["graph_iters_per_s", "setup_s"]
+    assert got["fleet_traffic"] == fleet_traffic
+    assert got["fleet_correct"], got["fleet_checks"]
     assert all(p.read_bytes() == b for p, b in before.items())
