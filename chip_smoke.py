@@ -44,7 +44,16 @@ Phases; any failure ends the script with a non-zero exit code:
    for bit, b within L1_RHS_ULPS max_degree f32 units of each dof's sum of
    |parts| and bit-equal to the plain version's plan-order gather, χ²
    within L1_CHI2_RTOL, the same bits on a second call, one LAUNCHES count
-   a call, two device operations a call (torch.profiler);
+   a call, two device operations a call (torch.profiler). The robust L1
+   (se2_edge_terms_gnc) the same way on corridor-1728-gnc and on the fleet
+   of 8 with its false closures, under gnc-gm at μ0, at μ halfway and at
+   μ = 1 (device tensors, as the LM loops pass μ) and at a number μ with
+   δ = GNC_NUMBER_DELTA. LC (se2_lm_cost, LM's accept test) against its
+   plain version (se2_cost_plain) within LC_RTOL on corridor-1728 by least
+   squares and on corridor-1728-gnc and its fleet under gnc-gm, at μ
+   halfway and at the number μ: the same bits on a second call, equal sums
+   for equal graphs, one LAUNCHES count and one device operation a call.
+   Every parity call's counters are set to 0 just before it;
 4. main paths, each with every launch counter set to 0 just before it and
    read just after:
    a. make_optimize(backend="banded-kernel") on corridor-1728 in f32,
@@ -253,7 +262,8 @@ Phases; any failure ends the script with a non-zero exit code:
    fleets' graph-iterations/s against one graph's; K1, K2, K4 and K5 again
    at sphere-2500's kb = 384; L1 on corridor-1728 and the fleet of 8 (calls
    queued back to back) beside system_values_plain and its bound, and the
-   host's time a call of both;
+   host's time a call of both; the robust L1 on the gnc fleet of 8 at μ
+   halfway, and LC on corridor-1728-gnc and that fleet, the same way;
 6. trace: one GN run of each main path under torch.profiler (cg-banded
    and sphere-2500 GN of TRACE_SHORT_ITERS iterations), device time by
    kernel and the device's idle share; K1's device launches per
@@ -266,9 +276,11 @@ Phases; any failure ends the script with a non-zero exit code:
    parallel_launches, blocks_launches and cli_launches, 0: the filter,
    SLAM, vision, control, parallel, blocks and cli phases run none; and
    bench_launches, the in-process families of the bench phase; L1 with its
-   fleet of 8's readings under *_b8 keys and the launches of every phase),
-   then the contract line {"ok": true, "device": {...}}
-   last.
+   fleet of 8's readings under *_b8 keys, its robust form's under
+   max_abs_err_gnc and *_gnc_b8 keys, and the launches of every phase; LC
+   with its readings on corridor-1728-gnc, its fleet's under *_b8 keys and
+   the launches of every phase), then the contract line {"ok": true,
+   "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -340,6 +352,18 @@ SOURCES = ("band_chol", "banded_matvec", "band_assemble", "se2_linearize")
 # torch.sum's order: the H100 read 0 on corridor-1728 and 6.3e-8 on a
 # landmark graph).
 L1_RHS_ULPS, L1_CHI2_RTOL = 2, 1e-5
+# The robust L1 (se2_edge_terms_gnc, robust="gnc-gm") is held to the same
+# limits, b's units taken from each dof's sum of weighted |parts|: at GNC's
+# μ0, at μ halfway and at μ = 1, device tensors as the LM loops pass μ, and
+# at a number μ with δ = GNC_NUMBER_DELTA (pgo.optimize's form, whose
+# weights form s = (μ δ) δ in double). LC (se2_lm_cost, LM's accept test)
+# against its plain version: Σ e^T Ω e and Σ ρ_μ within LC_RTOL (a fixed
+# order against torch.sum's, as L1's χ²).
+GNC_NUMBER_DELTA, LC_RTOL = 1.5, 1e-5
+# LC's operations an edge of a graph costed, counted from edge_cost in
+# csrc/se2_linearize.cu, a sine or cosine as one: the residual, W e, e^T W e,
+# ρ and the two running sums.
+LC_FLOPS_PP, LC_FLOPS_PL = 52, 27
 
 # sphere-2500: sphere2500's shape (sphere_graph), its band plan and fleet.
 SPHERE_RINGS, SPHERE_PER_RING = 50, 50
@@ -665,6 +689,22 @@ def queued_ms(fn, calls=50, repeats=5, flush=None):
         torch.cuda.synchronize()
         times.append(sum(a.elapsed_time(b) for a, b in pairs) / calls)
     return statistics.median(times)
+
+
+def host_ms(fn, calls=100, repeats=5):
+    """The host's ms a call of fn, in blocks of ``calls`` calls with a
+    synchronize at each end (median of ``repeats``)."""
+    import torch
+
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / calls * 1e3)
+    return statistics.median(walls)
 
 
 def tf32(t):
@@ -1957,18 +1997,30 @@ def fleet_path(device, graphs64):
     return runners["gauss_newton"], fleet, launches
 
 
-def rhs_scale(graph):
+def rhs_scale(graph, robust=None):
     """Per dof of an SE2 graph (or fleet), the sum of |parts| that
-    system_values' index_add_ adds into b."""
+    system_values' index_add_ adds into b, each part times its edge's
+    weight under ``robust`` (system_values' robust keyword arguments)."""
     import torch
 
-    from rustrobotics_tpu_torch.mapping import linearize
+    from rustrobotics_tpu_torch.mapping import assemble, linearize
 
-    *_, bi, bj, _ = linearize.edge_terms_pp_soa(
+    *_, bi, bj, c2_pp = linearize.edge_terms_pp_soa(
         graph.poses2, graph.pp_from, graph.pp_to, graph.pp_z, graph.pp_omega)
-    *_, li, lj, _ = linearize.edge_terms_pl_soa(
+    *_, li, lj, c2_pl = linearize.edge_terms_pl_soa(
         graph.poses2, graph.landmarks2, graph.pl_pose, graph.pl_lm,
         graph.pl_z, graph.pl_omega)
+    if robust:
+        rw = {"robust_delta": 1.0, "mu": None, "robust_edges": "closures",
+              **robust}
+        w_pp, w_pl = (assemble.robust_weight(rw["robust"], c2,
+                                             rw["robust_delta"], mu=rw["mu"])
+                      for c2 in (c2_pp, c2_pl))
+        if rw["robust_edges"] == "closures":
+            w_pp = torch.where(assemble.odometry(graph.pp_from, graph.pp_to),
+                               torch.ones_like(w_pp), w_pp)
+        bi, bj = bi * w_pp[..., None, :], bj * w_pp[..., None, :]
+        li, lj = li * w_pl[..., None, :], lj * w_pl[..., None, :]
     scale = torch.zeros(graph.batch_shape + (graph.total_dof,),
                         dtype=graph.dtype, device=graph.device)
     for off, d, part in ((graph.pose2_offsets[graph.pp_from], 3, bi),
@@ -1981,14 +2033,15 @@ def rhs_scale(graph):
     return scale
 
 
-def l1_parity(name, graph, lam):
-    """Phase 3 for L1 on an f32 SE2 graph or fleet on the card:
+def l1_parity(name, graph, lam, **robust):
+    """Phase 3 for L1 on an f32 SE2 graph or fleet on the card, by least
+    squares or under ``robust`` (system_values' robust keyword arguments):
     system_values on the kernel path against system_values_plain (vals,
     b, χ² as L1_RHS_ULPS and L1_CHI2_RTOL say), b bit-equal to the plain
     version's plan-order gather, the same bits on a second call, one
-    LAUNCHES count a call and two device operations (the two kernels, no
-    fill or copy). Returns the graph, λ, the device plan and the
-    errors."""
+    LAUNCHES count a call from counts reset just before, and two device
+    operations (the two kernels, no fill or copy). Returns the graph, λ,
+    the robust arguments, the device plan and the errors."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2001,17 +2054,18 @@ def l1_parity(name, graph, lam):
     from rustrobotics_tpu_torch.ops import linearize_kernels as lk
 
     plan = build_layout(graph).linearize_plan.to(graph.device)
-    want = system_values_plain(graph, lam)
+    want = system_values_plain(graph, lam, **robust)
     reset_counts()
-    got = system_values(graph, lam, plan=plan)
-    again = system_values(graph, lam, plan=plan)
+    got = system_values(graph, lam, plan=plan, **robust)
+    again = system_values(graph, lam, plan=plan, **robust)
     torch.cuda.synchronize()
     launches = read_counts()["se2_linearize"]
-    _, b_mirror, _ = lk.se2_linearize_plain(graph, lam, PRIOR_WEIGHT, plan)
+    _, b_mirror, _ = lk.se2_linearize_plain(graph, lam, PRIOR_WEIGHT, plan,
+                                            **robust)
     (vals_k, b_k, chi2_k), (vals_p, b_p, chi2_p) = got, want
     vals_bad = int((vals_k.view(torch.int32)
                     != vals_p.view(torch.int32)).sum())
-    unit = 2.0 ** -24 * rhs_scale(graph)
+    unit = 2.0 ** -24 * rhs_scale(graph, robust)
     diff = (b_k - b_p).abs()
     b_units = float((diff / unit.clamp(min=torch.finfo(unit.dtype).tiny))
                     .max())
@@ -2022,11 +2076,11 @@ def l1_parity(name, graph, lam):
     chi2_rel = float(((chi2_k - chi2_p).abs() / chi2_p.abs()).max())
     same = all(torch.equal(x, y) for x, y in zip(again, got))
     calls = 4
-    system_values(graph, lam, plan=plan)
+    system_values(graph, lam, plan=plan, **robust)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            system_values(graph, lam, plan=plan)
+            system_values(graph, lam, plan=plan, **robust)
         torch.cuda.synchronize()
     ops = [e.name for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2058,13 +2112,14 @@ def l1_parity(name, graph, lam):
                     for n in ops),
             f"[parity] L1 {name}: two device operations a call, the two "
             f"kernels")
-    return dict(graph=graph, lam=lam, plan=plan, b_abs=b_abs,
+    return dict(graph=graph, lam=lam, robust=robust, plan=plan, b_abs=b_abs,
                 b_units=b_units, chi2_rel=chi2_rel)
 
 
 def l1_times(l1):
-    """Phase 5 for L1: the kernel's device time a call and its plain
-    version's (system_values_plain), each queued behind a sleep kernel (L2
+    """Phase 5 for L1 (by least squares or under ``l1["robust"]``): the
+    kernel's device time a call and its plain version's
+    (system_values_plain), each queued behind a sleep kernel (L2
     warm, as in the GN loop), beside the bound: every input read once,
     vals, b and χ² written once, roofline.linearize_flops. No library
     routine does this step (library_ms None). The host's time a call of
@@ -2078,7 +2133,8 @@ def l1_times(l1):
     from rustrobotics_tpu_torch.ops import linearize_kernels as lk
     from rustrobotics_tpu_torch.roofline import linearize_flops
 
-    graph, lam, plan = l1["graph"], l1["lam"], l1["plan"]
+    graph, lam, plan, robust = l1["graph"], l1["lam"], l1["plan"], l1[
+        "robust"]
     graphs = math.prod(graph.batch_shape)
     inputs = sum(t.numel() * t.element_size() for t in (
         graph.poses2, graph.landmarks2, graph.pp_z, graph.pp_omega,
@@ -2090,30 +2146,203 @@ def l1_times(l1):
     bound, by = bound_ms(nbytes, flops)
 
     def kernel():
-        return lk.se2_linearize_kernel(graph, lam, PRIOR_WEIGHT, plan)
+        return lk.se2_linearize_kernel(graph, lam, PRIOR_WEIGHT, plan,
+                                       **robust)
 
     def plain():
-        return system_values_plain(graph, lam)
-
-    def host_ms(fn, calls=100, repeats=5):
-        walls = []
-        for _ in range(repeats):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) / calls * 1e3)
-        return statistics.median(walls)
+        return system_values_plain(graph, lam, **robust)
 
     out = dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain, calls=5),
                library_ms=None, bound_ms=bound, bound_by=by,
                host_ms=host_ms(kernel), plain_host_ms=host_ms(plain))
-    print(f"[times] L1 se2_linearize B={graphs}: kernel {out['ms']:.6f} ms, "
+    form = f" {robust['robust']}" if robust else ""
+    print(f"[times] L1 se2_linearize{form} B={graphs}: kernel "
+          f"{out['ms']:.6f} ms, "
           f"plain {out['plain_ms']:.6f} ms (device, queued), bound "
           f"{bound:.6f} ms ({by}; {nbytes:.4g} B, {flops:.4g} FLOP), "
           f"kernel/bound {out['ms'] / bound:.1f}; host a call (blocks of "
           f"100): kernel {out['host_ms']:.6f} ms, plain "
+          f"{out['plain_host_ms']:.6f} ms", flush=True)
+    return out
+
+
+def gnc_fleet(device, graphs64):
+    """corridor-1728-gnc in f32 and the fleet of FLEET with its false
+    closures (the fleet's guesses, corrupt_closures' measurements)."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import stack_graphs
+
+    _, bad, _ = gnc_graphs(device)
+    return bad, stack_graphs([g.to(dtype=torch.float32).replace(
+        pp_z=bad.pp_z) for g in graphs64])
+
+
+def gnc_mus(graph):
+    """GNC's μ as the LM loops pass it (``pgo._gnc_mu``, a device tensor of
+    the graph's batch shape) at μ0, halfway through the schedule of
+    GNC_ITERS and at μ = 1, by label; and a number μ, the square root of
+    the first row's μ0 at δ = GNC_NUMBER_DELTA, as pgo.optimize passes
+    it."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.pgo import (
+        _gnc_mu,
+        gnc_iterations,
+        gnc_mu0,
+    )
+
+    k_gnc = gnc_iterations(GNC_ITERS)
+    mu0 = gnc_mu0(graph, 1.0)
+    mus = {at: _gnc_mu(mu0, torch.full(graph.batch_shape, it,
+                                       device=graph.device), k_gnc)
+           for at, it in (("μ0", 0), ("μ halfway", k_gnc // 2),
+                          ("μ = 1", k_gnc))}
+    number = float(gnc_mu0(graph, GNC_NUMBER_DELTA).reshape(-1)[0]) ** 0.5
+    return mus, number
+
+
+def gnc_l1_parity(bad, fleet, lams):
+    """Phase 3 for the robust L1 (se2_edge_terms_gnc): l1_parity under
+    gnc-gm on corridor-1728-gnc and on its fleet (``lams`` the fleet's λs)
+    at each of gnc_mus' μ tensors (δ 1) and at its number μ (δ
+    GNC_NUMBER_DELTA). Returns the fleet's parity at μ halfway (for its
+    times) and the worst b error."""
+    worst, mid = 0.0, None
+    for label, graph, lam in (("corridor-1728-gnc", bad, 0.0),
+                              (f"fleet of {FLEET} gnc", fleet, lams)):
+        mus, number = gnc_mus(graph)
+        for at, mu in mus.items():
+            r = l1_parity(f"{label} gnc-gm at {at}", graph, lam,
+                          robust="gnc-gm", robust_delta=1.0, mu=mu)
+            worst = max(worst, r["b_abs"])
+            if graph is fleet and at == "μ halfway":
+                mid = r
+        r = l1_parity(f"{label} gnc-gm at μ {number:.6g} (a number), δ "
+                      f"{GNC_NUMBER_DELTA}", graph, lam, robust="gnc-gm",
+                      robust_delta=GNC_NUMBER_DELTA, mu=number)
+        worst = max(worst, r["b_abs"])
+    return mid, worst
+
+
+def lm_cost_parity(name, trial, current, **robust):
+    """Phase 3 for LC (se2_lm_cost) on an f32 SE2 graph or fleet on the
+    card: ``linearize_kernels.se2_cost_kernel`` against se2_cost_plain on
+    the same inputs (the trial's Σ e^T Ω e and, with ``robust``, Σ ρ_μ at
+    the trial and at ``current``, each within LC_RTOL), the same bits on a
+    second call, equal sums where the current graph is the trial, one
+    LAUNCHES count a call from counts reset just before, and one device
+    operation a call. Returns the inputs and the error."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rustrobotics_tpu_torch.ops import linearize_kernels as lk
+
+    kw = dict(robust=robust.get("robust"),
+              robust_delta=robust.get("robust_delta", 1.0),
+              mu=robust.get("mu"), current=current if robust else None)
+    want = lk.se2_cost_plain(trial, **kw)
+    reset_counts()
+    got = lk.se2_cost_kernel(trial, **kw)
+    again = lk.se2_cost_kernel(trial, **kw)
+    torch.cuda.synchronize()
+    launches = read_counts()["se2_lm_cost"]
+    got_sums, want_sums = ([r.double().cpu().tolist() for r in sums
+                            if r is not None] for sums in (got, want))
+    rel = max(float(((g - w).abs() / w.abs()).max())
+              for g, w in zip(got, want) if w is not None)
+    same = all(torch.equal(x, y) for x, y in zip(again, got)
+               if x is not None)
+    equal = True
+    if robust:
+        _, rho, rho_cur = lk.se2_cost_kernel(trial, **dict(kw,
+                                                           current=trial))
+        equal = torch.equal(rho, rho_cur)
+    calls = 4
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            lk.se2_cost_kernel(trial, **kw)
+        torch.cuda.synchronize()
+    ops = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[parity] LC {name}: batch {tuple(trial.batch_shape)}, "
+          f"{trial.pp_from.shape[0] + trial.pl_pose.shape[0]} edges; "
+          f"sums {got_sums} against {want_sums} ({rel:.3g} relative, "
+          f"limit {LC_RTOL}); device operations over "
+          f"{calls} calls: {len(ops)}", flush=True)
+    require(rel <= LC_RTOL, f"[parity] LC {name}: the sums within {LC_RTOL} "
+                            f"of the plain version")
+    require(same, f"[parity] LC {name}: the same bits on a second call")
+    require(equal, f"[parity] LC {name}: the current graph's sum equals the "
+                   f"trial's where they are one graph")
+    require(launches == 2, f"[parity] LC {name}: LAUNCHES counts each call")
+    require(calls - 1 <= len(ops) <= calls
+            and all("se2_lm_cost" in n for n in ops),
+            f"[parity] LC {name}: one device operation a call, the kernel")
+    return dict(trial=trial, kw=kw, rel=rel)
+
+
+def lm_cost_parities(g32, bad, fleet):
+    """LC on corridor-1728 by least squares (``global_error``'s form), and
+    under gnc-gm on corridor-1728-gnc and its fleet at μ halfway and at a
+    number μ (δ GNC_NUMBER_DELTA), each trial the graph's poses moved by
+    1e-3. Returns the one graph's and the fleet's gnc-gm parity at μ
+    halfway (for their times) and the worst error."""
+    out = [lm_cost_parity("corridor-1728 least squares", g32.replace(
+        poses2=g32.poses2 + 1e-3), g32)]
+    timed = []
+    for label, graph in (("corridor-1728-gnc", bad),
+                         (f"fleet of {FLEET} gnc", fleet)):
+        mus, number = gnc_mus(graph)
+        trial = graph.replace(poses2=graph.poses2 + 1e-3)
+        timed.append(lm_cost_parity(f"{label} gnc-gm at μ halfway", trial,
+                                    graph, robust="gnc-gm",
+                                    mu=mus["μ halfway"]))
+        out += [timed[-1], lm_cost_parity(
+            f"{label} gnc-gm at μ {number:.6g} (a number), δ "
+            f"{GNC_NUMBER_DELTA}", trial, graph, robust="gnc-gm",
+            robust_delta=GNC_NUMBER_DELTA, mu=number)]
+    return timed[0], timed[1], max(r["rel"] for r in out)
+
+
+def lm_cost_times(lc):
+    """Phase 5 for LC: the kernel's device time a call (trial and current
+    graph) and its plain version's (se2_cost_plain), each queued behind a
+    sleep kernel (L2 warm, as in the LM loop), beside the bound: the
+    edges' indices, measurements and information matrices and both
+    graphs' nodes read once, three sums a graph written once, LC_FLOPS_*
+    an edge of each graph. No library routine does this step (library_ms
+    None). The host's ms a call of each, blocks of 100 calls, as
+    host_ms / plain_host_ms."""
+    from rustrobotics_tpu_torch.ops import linearize_kernels as lk
+
+    trial, kw = lc["trial"], lc["kw"]
+    graphs = math.prod(trial.batch_shape)
+    costed = [g for g in (trial, kw["current"]) if g is not None]
+    nodes = sum(t.numel() * t.element_size() for g in costed
+                for t in (g.poses2, g.landmarks2))
+    edges = sum(t.numel() * t.element_size() for t in (
+        trial.pp_z, trial.pp_omega, trial.pl_z, trial.pl_omega,
+        trial.pp_from, trial.pp_to, trial.pl_pose, trial.pl_lm))
+    nbytes = nodes + edges + 4 * graphs * 3
+    flops = len(costed) * graphs * (LC_FLOPS_PP * trial.pp_from.shape[0]
+                                    + LC_FLOPS_PL * trial.pl_pose.shape[0])
+    bound, by = bound_ms(nbytes, flops)
+
+    def kernel():
+        return lk.se2_cost_kernel(trial, **kw)
+
+    def plain():
+        return lk.se2_cost_plain(trial, **kw)
+
+    out = dict(ms=queued_ms(kernel), plain_ms=queued_ms(plain, calls=5),
+               library_ms=None, bound_ms=bound, bound_by=by,
+               host_ms=host_ms(kernel), plain_host_ms=host_ms(plain))
+    print(f"[times] LC se2_lm_cost {kw['robust']} B={graphs}: kernel "
+          f"{out['ms']:.6f} ms, plain {out['plain_ms']:.6f} ms (device, "
+          f"queued), bound {bound:.6f} ms ({by}; {nbytes:.4g} B, "
+          f"{flops:.4g} FLOP), kernel/bound {out['ms'] / bound:.1f}; host a "
+          f"call (blocks of 100): kernel {out['host_ms']:.6f} ms, plain "
           f"{out['plain_host_ms']:.6f} ms", flush=True)
     return out
 
@@ -5961,6 +6190,12 @@ def smoke(refs, slam_refs, gate) -> int:
     l1b = l1_parity(f"fleet of {FLEET}", stack_graphs(
         [g.to(dtype=torch.float32) for g in graphs64]),
         LM_LAMBDA0 * 2.0 ** torch.arange(FLEET, device=device))
+    gnc_bad, gnc_fleet_b = gnc_fleet(device, graphs64)
+    l1g, l1g_err = gnc_l1_parity(
+        gnc_bad, gnc_fleet_b,
+        LM_LAMBDA0 * 2.0 ** torch.arange(FLEET, device=device))
+    lc1, lcb, lc_err = lm_cost_parities(
+        corridor(1728, device).to(dtype=torch.float32), gnc_bad, gnc_fleet_b)
     gn, g32, launches = main_path(device)
     cg_gn, cg_launches = cg_main_path(device, g32)
     fleet_gn, fleet, fleet_launches = fleet_path(device, graphs64)
@@ -6031,6 +6266,9 @@ def smoke(refs, slam_refs, gate) -> int:
     timed["assemble_batch"] = assemble_times(p1728["bl"], fp["vals"])
     timed["linearize"] = l1_times(l1)
     timed["linearize_batch"] = l1_times(l1b)
+    timed["linearize_gnc_batch"] = l1_times(l1g)
+    timed["lm_cost"] = lm_cost_times(lc1)
+    timed["lm_cost_batch"] = lm_cost_times(lcb)
     fleet_times(fp, p1728["bl"], fleet_gn, fleet, gn, g32)
     timed3 = times(p3d, gn3, g3, "sphere-2500")
     timed3["assemble_b1"] = assemble_times(p3d["bl"], p3d["vals"].float())
@@ -6184,6 +6422,9 @@ def smoke(refs, slam_refs, gate) -> int:
            ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms",
             "plain_host_ms")},
         max_abs_err_b8=l1b["b_abs"],
+        max_abs_err_gnc=l1g_err,
+        **{f"{key}_gnc_b8": timed["linearize_gnc_batch"][key] for key in
+           ("ms", "plain_ms", "bound_ms", "host_ms", "plain_host_ms")},
         bootstrap_launches=boot_launches["se2_linearize"],
         posegraph_launches=pg_launches["se2_linearize"],
         frontend_launches=fe_launches["se2_linearize"],
@@ -6196,9 +6437,44 @@ def smoke(refs, slam_refs, gate) -> int:
         gnc_launches=gnc_launches["se2_linearize"],
         marginal_launches=(marg["launches"]["se2_linearize"]
                            + marg3["launches"]["se2_linearize"])))
+    # LC, LM's accept test (the trial's χ² and both graphs' GNC costs in
+    # one launch; global_error of any f32 SE2 graph on the card)
+    kernels.append(dict(
+        name="se2_lm_cost_f32 (LC)", route="cuda",
+        source="rustrobotics_tpu_torch/csrc/se2_linearize.cu",
+        replaces="none: mapping/pgo.py::global_error and "
+                 "robust_global_cost, left to XLA's fusion in the JAX "
+                 "package",
+        launches=launches["se2_lm_cost"], max_abs_err=lc_err,
+        fleet_launches=fleet_launches["se2_lm_cost"],
+        err_measure="max relative error of the sums against "
+                    "se2_cost_plain: corridor-1728 by least squares, "
+                    "corridor-1728-gnc and its fleet of 8 under gnc-gm at μ "
+                    "halfway and at a number μ (δ 1.5)",
+        ms_measure="device ms a call (the trial and the current graph), "
+                   "calls queued back to back (L2 warm), corridor-1728-gnc "
+                   "at μ halfway; *_b8 its fleet of 8; host_ms a call in "
+                   "blocks of 100; library_ms None: no library routine "
+                   "does this step",
+        **timed["lm_cost"],
+        **{f"{key}_b8": timed["lm_cost_batch"][key] for key in
+           ("ms", "plain_ms", "bound_ms", "library_ms", "host_ms",
+            "plain_host_ms")},
+        bootstrap_launches=boot_launches["se2_lm_cost"],
+        posegraph_launches=pg_launches["se2_lm_cost"],
+        frontend_launches=fe_launches["se2_lm_cost"],
+        filters_launches=filter_launches["se2_lm_cost"],
+        slam_launches=slam_launches["se2_lm_cost"],
+        parallel_launches=par_launches["se2_lm_cost"],
+        blocks_launches=blk_launches["se2_lm_cost"],
+        cli_launches=cli_launches["se2_lm_cost"],
+        bench_launches=bench_launches["se2_lm_cost"],
+        gnc_launches=gnc_launches["se2_lm_cost"],
+        marginal_launches=(marg["launches"]["se2_lm_cost"]
+                           + marg3["launches"]["se2_lm_cost"])))
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "max_abs_err"):
-            for name in (key, f"{key}_3d", f"{key}_b8"):
+            for name in (key, f"{key}_3d", f"{key}_b8", f"{key}_gnc_b8"):
                 if k.get(name) is not None and not math.isfinite(k[name]):
                     fail(f"{k['name']} {name} is not finite")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,9 +17,10 @@ to every diagonal.
   ``robust_rho`` is the matching loss of the LM accept test;
 - a fleet of same-structure graphs (``pgo.stack_graphs``) runs the same
   code with a leading batch axis on every value (and on the GNC μ);
-- on the card an f32 graph with no SE3 edge and no robust kernel (one
-  graph or a fleet) is linearized by one CUDA kernel
-  (``ops/linearize_kernels.py``); every other graph runs the tensor code.
+- on the card an f32 graph with no SE3 edge, by least squares or under
+  GNC Geman-McClure (one graph or a fleet), is linearized by one CUDA
+  kernel (``ops/linearize_kernels.py``); every other graph runs the tensor
+  code.
 """
 
 from __future__ import annotations
@@ -391,9 +392,10 @@ def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
     edges (|to - from| = 1) at L2; "all" robustifies every edge. The
     returned χ² stays the raw quadratic error.
 
-    A CUDA f32 graph with no SE3 edge and ``robust=None`` takes the SE2
-    kernel (``linearize_kernels.takes_kernel``): the same vals bit for bit,
-    b and χ² summed in a fixed order. It writes where ``plan`` says, the
+    A CUDA f32 graph with no SE3 edge and ``robust`` None or "gnc-gm"
+    takes the SE2 kernel (``linearize_kernels.takes_kernel``; μ read on the
+    device): the same vals bit for bit, b and χ² summed in a fixed order.
+    It writes where ``plan`` says, the
     graph's ``build_layout(graph).linearize_plan``: a caller that
     linearizes one structure many times passes it (moved to the card
     once); without it this call builds the layout. Every other graph
@@ -402,8 +404,9 @@ def system_values(graph: PoseGraphData, lam, prior_weight=PRIOR_WEIGHT,
                                       graph.qq_from.shape[0], robust):
         if plan is None:
             plan = build_layout(graph).linearize_plan
-        return linearize_kernels.se2_linearize_kernel(graph, lam,
-                                                      prior_weight, plan)
+        return linearize_kernels.se2_linearize_kernel(
+            graph, lam, prior_weight, plan, robust=robust,
+            robust_delta=robust_delta, mu=mu, robust_edges=robust_edges)
     return system_values_plain(graph, lam, prior_weight, robust,
                                robust_delta, robust_alpha, mu, robust_edges)
 

@@ -80,7 +80,8 @@ from rustrobotics_tpu_torch.mapping.linearize import (
     residual_pp,
     residual_qq,
 )
-from rustrobotics_tpu_torch.utils.metrics import spanned
+from rustrobotics_tpu_torch.ops import linearize_kernels
+from rustrobotics_tpu_torch.utils.metrics import span, spanned
 
 BACKENDS = ("auto", "auto-measure", "banded-kernel", "banded-direct",
             "banded-cr", "banded-mixed", "dense", "schur", "host", "native",
@@ -109,10 +110,19 @@ def _edge_chi2(graph: PoseGraphData):
     return out
 
 
+def _takes_cost_kernel(graph: PoseGraphData, robust) -> bool:
+    return linearize_kernels.takes_kernel(graph.device, graph.dtype,
+                                          graph.qq_from.shape[0], robust)
+
+
 @spanned("update")
 def global_error(graph: PoseGraphData) -> torch.Tensor:
     """Σ e^T Ω e over all edges, a tensor of the graph's batch shape (0-d
-    for one graph) on its device."""
+    for one graph) on its device. A graph that takes the SE2 kernels
+    (``linearize_kernels.takes_kernel``) is summed by the cost kernel, in
+    a fixed order."""
+    if _takes_cost_kernel(graph, None):
+        return linearize_kernels.se2_cost_kernel(graph)[0]
     return sum(c.sum(-1) for c in _edge_chi2(graph))
 
 
@@ -134,7 +144,13 @@ def robust_global_cost(graph: PoseGraphData, robust, delta, alpha=-2.0,
     """Sum of per-edge robust losses rho(e^T Ω e), the objective a robust
     run minimizes; odometry pose-pose edges stay quadratic under
     robust_edges="closures", as in system_values. robust=None gives the
-    raw χ² of ``global_error``. ``mu`` may carry the batch shape."""
+    raw χ² of ``global_error``. ``mu`` may carry the batch shape. A graph
+    that takes the SE2 kernels (least squares or "gnc-gm") is costed by the
+    cost kernel."""
+    if _takes_cost_kernel(graph, robust):
+        chi2, rho, _ = linearize_kernels.se2_cost_kernel(
+            graph, robust, delta, mu, robust_edges)
+        return chi2 if robust is None else rho
     c_pp, c_pl, c_qq = _edge_chi2(graph)
     total = torch.zeros(graph.batch_shape, dtype=graph.dtype,
                         device=graph.device)
@@ -148,6 +164,24 @@ def robust_global_cost(graph: PoseGraphData, robust, delta, alpha=-2.0,
             rho = torch.where(odometry(fr, to), c, rho)
         total = total + rho.sum(-1)
     return total
+
+
+def _accept_costs(trial: PoseGraphData, current: PoseGraphData, robust,
+                  delta, alpha, mu):
+    """What LM's accept test compares: (the trial's Σ e^T Ω e, its robust
+    cost at μ, the current graph's robust cost at μ), the costs None
+    without a robust kernel. A graph on the SE2 kernels' path gets all
+    three from one launch of the cost kernel, in one order for both
+    graphs; else ``global_error`` and ``robust_global_cost``."""
+    if robust is not None and _takes_cost_kernel(trial, robust):
+        return linearize_kernels.se2_cost_kernel(trial, robust, delta, mu,
+                                                 current=current)
+    error = global_error(trial)
+    if robust is None:
+        return error, None, None
+    return (error, robust_global_cost(trial, robust, delta, alpha=alpha,
+                                      mu=mu),
+            robust_global_cost(current, robust, delta, alpha=alpha, mu=mu))
 
 
 def gnc_mu0(graph: PoseGraphData, robust_delta) -> torch.Tensor:
@@ -446,27 +480,23 @@ def make_optimize(
         vals, b, _ = system_values(g, lam, prior_weight, mu=mu, **robust_kw)
         dx = solve(vals, b)
         new_g = apply_update(g, dx)
-        error = global_error(new_g)
-        # NaN-safe reject: a non-finite trial error (e.g. f32 Cholesky
-        # breakdown at small λ) counts as a rejection
-        if robust is None:
-            reject = ~(error <= last_error)
-        else:
-            # the robust surrogate at the current mu, on both sides
-            trial = robust_global_cost(new_g, robust, robust_delta,
-                                       alpha=robust_alpha, mu=mu)
-            cur = robust_global_cost(g, robust, robust_delta,
-                                     alpha=robust_alpha, mu=mu)
-            reject = ~(trial <= cur)
-        g = g.replace(**{f: torch.where(reject, getattr(g, f),
-                                        getattr(new_g, f))
-                         for f in _NODE_FIELDS})
-        lam = torch.where(reject, lam * 2.0, lam / 2.0)
-        errors[it + 1] = error
-        # the trial error is recorded unconditionally; keep the old one
-        # only when the trial was NaN, so one bad solve cannot poison
-        # every later accept test
-        last_error = torch.where(torch.isnan(error), last_error, error)
+        with span("lm.accept"):
+            error, trial, cur = _accept_costs(new_g, g, robust, robust_delta,
+                                              robust_alpha, mu)
+            # NaN-safe reject: a non-finite trial error (e.g. f32 Cholesky
+            # breakdown at small λ) counts as a rejection; a robust run
+            # compares the surrogate at the current mu, on both sides
+            reject = ~(error <= last_error if robust is None
+                       else trial <= cur)
+            g = g.replace(**{f: torch.where(reject, getattr(g, f),
+                                            getattr(new_g, f))
+                             for f in _NODE_FIELDS})
+            lam = torch.where(reject, lam * 2.0, lam / 2.0)
+            errors[it + 1] = error
+            # the trial error is recorded unconditionally; keep the old one
+            # only when the trial was NaN, so one bad solve cannot poison
+            # every later accept test
+            last_error = torch.where(torch.isnan(error), last_error, error)
         return g, lam, last_error, dx
 
     def step_gn(g, mu, errors, it):
@@ -631,21 +661,20 @@ def make_optimize_batch(
                                            **robust_kw)
                 dx = solve(vals, b)
                 trial = apply_update(g, dx)
-                error = global_error(trial)
-                # NaN-safe reject, and the trial error recorded
-                # unconditionally, as in make_optimize
-                if robust is None:
-                    reject = ~(error <= last_error)
-                else:
-                    reject = ~(robust_global_cost(
-                        trial, robust, robust_delta, alpha=robust_alpha,
-                        mu=mu) <= robust_global_cost(
-                        g, robust, robust_delta, alpha=robust_alpha, mu=mu))
-                new_g = {f: select(reject, getattr(g, f), getattr(trial, f))
-                         for f in _NODE_FIELDS}
-                new_lam = torch.where(reject, lam * 2.0, lam / 2.0)
-                new_errors = put(errors, it + 1, error)
-                new_last = torch.where(torch.isnan(error), last_error, error)
+                with span("lm.accept"):
+                    error, trial_cost, cur_cost = _accept_costs(
+                        trial, g, robust, robust_delta, robust_alpha, mu)
+                    # NaN-safe reject, and the trial error recorded
+                    # unconditionally, as in make_optimize
+                    reject = ~(error <= last_error if robust is None
+                               else trial_cost <= cur_cost)
+                    new_g = {f: select(reject, getattr(g, f),
+                                       getattr(trial, f))
+                             for f in _NODE_FIELDS}
+                    new_lam = torch.where(reject, lam * 2.0, lam / 2.0)
+                    new_errors = put(errors, it + 1, error)
+                    new_last = torch.where(torch.isnan(error), last_error,
+                                           error)
             else:
                 vals, b, chi2 = system_values(g, 0.0, prior_weight, mu=mu,
                                               **robust_kw)

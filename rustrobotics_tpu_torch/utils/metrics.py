@@ -77,8 +77,11 @@ def span(name: str):
     ``linearize`` (``assemble.system_values``), ``band.assemble``,
     ``band.factorize`` and ``band.substitute`` (``band_chol.solve_banded``),
     ``update`` (``assemble.apply_update``, ``pgo.global_error``,
-    ``pgo.robust_global_cost``), all inside ``request`` (one ``run(graph)``
-    of ``make_optimize`` or ``make_optimize_batch``, or one ``optimize``
+    ``pgo.robust_global_cost``), ``lm.accept`` (LM's accept test in
+    ``make_optimize`` and ``make_optimize_batch``: the trial's and the
+    current graph's costs, the select and λ; ``update`` nests in it off the
+    cost kernel's path), all inside ``request`` (one ``run(graph)`` of
+    ``make_optimize`` or ``make_optimize_batch``, or one ``optimize``
     call)."""
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(SPAN_PREFIX + name)

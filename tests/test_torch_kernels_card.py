@@ -505,11 +505,13 @@ def test_marginals_through_kernels_match_plain(cuda_device):
 @pytest.mark.cuda
 def test_k1_keeps_pivots_on_frontend_band(cuda_device):
     """The front end's graph of chip_smoke (n = 5248, kb = 256, nb = 21)
-    after LM 30 on banded-direct, K4's band at λ = FE_BREAK_LAM: near
-    singular in f32, and a K1 whose sub-panel steps scaled X and the
+    after LM 30 on banded-direct, as chip_smoke's front-end K1 gate reads
+    it (``frontend_gate_graph``: built in f64 on the CPU, bit-reproducible,
+    cast to f32), K4's band at λ = FE_BREAK_LAM and at λ = LM_LAMBDA0:
+    near singular in f32, and a K1 whose sub-panel steps scaled X and the
     update with two roundings of the pivot lost pivots on it from block
-    row 5 or 6 on. K1 keeps every pivot, as the plain chain does, and
-    stays within FE_K1_TOL of it (max|ldinv_kernel L_plain - I|)."""
+    row 5 or 6 on. K1 keeps every pivot the f64 chain keeps, as the plain
+    chain does, and stays within FE_K1_TOL of it (``pivot_gate``)."""
     from rustrobotics_tpu_torch.mapping import (
         build_pose_graph_from_slam_course,
     )
@@ -519,12 +521,16 @@ def test_k1_keeps_pivots_on_frontend_band(cuda_device):
                                           device=cuda_device)
     bl = build_band_chol(build_layout(g))
     assert (bl.kb, bl.nb) == (256, 21)
-    out, _, _ = make_optimize(g, num_iterations=cs.FE_ITERS, solver="lm",
-                              backend="banded-direct", tolerance=0.0,
-                              device=cuda_device)(g)
-    k1_bad, plain_bad, _, resid = cs.frontend_k1_check(out, bl, cuda_device)
-    assert plain_bad == [] and k1_bad == []
-    assert resid <= cs.FE_K1_TOL, resid
+    threads = torch.get_num_threads()
+    try:
+        spec, _ = cs.frontend_gate_graph()
+    finally:
+        torch.set_num_threads(threads)
+    graph = cs.port_graph(spec, cuda_device).to(dtype=torch.float32)
+    for lam in (cs.FE_BREAK_LAM, cs.LM_LAMBDA0):
+        res = cs.pivot_gate(*cs.gate_band(graph, bl, cuda_device, lam),
+                            bk.factorize_kernel, bk.factorize_plain)
+        assert res["r64"] >= 1 and res["ok"], (lam, res)
 
 
 @pytest.mark.cuda
@@ -706,3 +712,192 @@ def test_gn10_runs_the_se2_kernel_every_iteration(cuda_device, monkeypatch):
     assert big.sum() >= 2
     torch.testing.assert_close(err_k[big], err_p[big], rtol=1e-2, atol=0)
     assert float(err_k[-1]) <= 1e-2 * float(err_k[0])
+
+
+def _gnc10(device, fleet=None):
+    """perfbench's intel-1728-gnc10 (310 of 3103 closures false) in f32 on
+    the card at a guess of its generator: one graph, or a fleet of
+    ``fleet`` guesses."""
+    from perfbench import harness
+    from rustrobotics_tpu_torch.mapping.g2o import graph_from_numpy
+
+    cfg = harness.load_config("intel-1728-gnc10")
+    gen = harness.generator(cfg)
+    s = gen.structure(cfg)
+    g = graph_from_numpy(s["fields"], s["total_dof"], s["prior2"],
+                         s["prior3"], device=device, dtype=torch.float32)
+    pool = gen.guesses(cfg, s, 2**31 + 7, fleet or 1, device)
+    if fleet is None:
+        return g.replace(poses2=pool[0])
+    return stack_graphs([g.replace(poses2=p) for p in pool])
+
+
+def _gnc_mu(graph, at):
+    """GNC's μ as the LM loops pass it at iteration 0 (μ0), 6 of 12 and
+    past 12 (1): a 0-d tensor for one graph, one a fleet row."""
+    from rustrobotics_tpu_torch.mapping import pgo
+
+    mu0 = pgo.gnc_mu0(graph, 1.0)
+    it = {"mu0": 0, "mid": 6, "one": 13}[at]
+    if graph.batch_shape:
+        it = torch.full(graph.batch_shape, it, device=graph.device)
+    return pgo._gnc_mu(mu0, it, pgo.gnc_iterations(20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", [None, 16])
+@pytest.mark.parametrize("at", ["mu0", "mid", "one"])
+def test_gnc_linearize_matches_plain(cuda_device, fleet, at):
+    """Under GNC Geman-McClure on intel-1728-gnc10 (one graph, a fleet of
+    16), at μ0, at μ halfway and at μ = 1: system_values runs the robust
+    kernel once and gives system_values_plain's vals bit for bit (the same
+    f32 operations: the weight (s / (c² + s))² with torch's pow(q, 2) =
+    q q, then each block entry times it); b bit for bit the plain
+    version's plan-order gather of the weighted parts; χ² unweighted,
+    within 1e-5 of the plain path's; the same bits on a second call."""
+    graph = _gnc10(cuda_device, fleet)
+    mu = _gnc_mu(graph, at)
+    lam = 0.01 if fleet is None else torch.full((fleet,), 0.01,
+                                                device=cuda_device)
+    kw = dict(robust="gnc-gm", robust_delta=1.0, mu=mu)
+    plan = build_layout(graph).linearize_plan.to(cuda_device)
+    vals_p, b_p, chi2_p = assemble.system_values_plain(graph, lam, **kw)
+    before = lk.LAUNCHES["se2_linearize"]
+    got = system_values(graph, lam, plan=plan, **kw)
+    again = system_values(graph, lam, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["se2_linearize"] == before + 2
+    vals_k, b_k, chi2_k = got
+    assert torch.equal(vals_k.view(torch.int32), vals_p.view(torch.int32))
+    _, b_m, _ = lk.se2_linearize_plain(graph, lam, assemble.PRIOR_WEIGHT,
+                                       plan, **kw)
+    assert torch.equal(b_k.view(torch.int32), b_m.view(torch.int32))
+    torch.testing.assert_close(chi2_k, chi2_p, rtol=1e-5, atol=0)
+    for x, first in zip(again, got):
+        assert torch.equal(x, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", [None, 16])
+@pytest.mark.parametrize("form", ["number", "none", "tensor"])
+def test_gnc_kernels_take_every_form_of_mu(cuda_device, fleet, form):
+    """At δ = 1.5, with μ a number (pgo.optimize's form), None (1) or a
+    tensor (the LM loops'), on intel-1728-gnc10 (one graph, a fleet of
+    16): system_values runs the robust kernel and gives
+    system_values_plain's vals bit for bit and the plain version's
+    plan-order b bit for bit, χ² within 1e-5; the cost kernel's sums at
+    the trial and at the current graph lie within 1e-5 of its plain
+    version's."""
+    graph = _gnc10(cuda_device, fleet)
+    mu = _gnc_mu(graph, "mid")
+    mu = {"number": float(mu.reshape(-1)[0]), "none": None,
+          "tensor": mu}[form]
+    lam = 0.01 if fleet is None else torch.full((fleet,), 0.01,
+                                                device=cuda_device)
+    kw = dict(robust="gnc-gm", robust_delta=1.5, mu=mu)
+    plan = build_layout(graph).linearize_plan.to(cuda_device)
+    vals_p, _, chi2_p = assemble.system_values_plain(graph, lam, **kw)
+    before = lk.LAUNCHES["se2_linearize"]
+    vals_k, b_k, chi2_k = system_values(graph, lam, plan=plan, **kw)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES["se2_linearize"] == before + 1
+    assert torch.equal(vals_k.view(torch.int32), vals_p.view(torch.int32))
+    _, b_m, _ = lk.se2_linearize_plain(graph, lam, assemble.PRIOR_WEIGHT,
+                                       plan, **kw)
+    assert torch.equal(b_k.view(torch.int32), b_m.view(torch.int32))
+    torch.testing.assert_close(chi2_k, chi2_p, rtol=1e-5, atol=0)
+    trial = graph.replace(poses2=graph.poses2 + 1e-3)
+    got = lk.se2_cost_kernel(trial, current=graph, **kw)
+    want = lk.se2_cost_plain(trial, current=graph, **kw)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_gnc_kernel_at_unit_weights_is_the_gn_kernel(cuda_device):
+    """On intel-1728-gnc10's odometry chain alone, where GNC weighs no
+    edge (robust_edges="closures"), the robust kernel gives the least
+    squares kernel's vals, b and χ² bit for bit: one edge body, the GN
+    form's operations unchanged."""
+    g = _gnc10(cuda_device, 4)
+    odo = (g.pp_to - g.pp_from).abs() == 1
+    g = g.replace(pp_from=g.pp_from[odo], pp_to=g.pp_to[odo],
+                  pp_z=g.pp_z[..., odo, :], pp_omega=g.pp_omega[..., odo, :, :])
+    plan = build_layout(g).linearize_plan.to(cuda_device)
+    gn = system_values(g, 0.01, plan=plan)
+    gnc = system_values(g, 0.01, plan=plan, robust="gnc-gm",
+                        mu=_gnc_mu(g, "mu0"))
+    for x, y in zip(gnc, gn):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fleet", [None, 16])
+@pytest.mark.parametrize("robust", [None, "gnc-gm"])
+def test_lm_cost_matches_global_error(cuda_device, fleet, robust):
+    """The cost kernel, one launch a call, against the tensor code of
+    global_error and robust_global_cost (another arithmetic for e^T Ω e
+    and torch.sum's order against a fixed one: 1e-5 relative) at the trial
+    and at the current graph; equal nodes give equal sums bit for bit;
+    pgo's functions take the kernel."""
+    from rustrobotics_tpu_torch.mapping import pgo
+
+    cur = _gnc10(cuda_device, fleet)
+    trial = cur.replace(poses2=cur.poses2 + 1e-3)
+    mu = _gnc_mu(cur, "mid") if robust else None
+    before = lk.LAUNCHES["se2_lm_cost"]
+    chi2, rho, rho_cur = lk.se2_cost_kernel(
+        trial, robust, 1.0, mu, current=cur if robust else None)
+    assert lk.LAUNCHES["se2_lm_cost"] == before + 1
+    close = dict(rtol=1e-5, atol=0)
+
+    def tensor_chi2(g):
+        return sum(c.sum(-1) for c in pgo._edge_chi2(g))
+
+    torch.testing.assert_close(chi2, tensor_chi2(trial), **close)
+    assert torch.equal(pgo.global_error(trial), chi2)
+    if robust is None:
+        assert rho is None and rho_cur is None
+        return
+    for got, g in ((rho, trial), (rho_cur, cur)):
+        c_pp, _, _ = pgo._edge_chi2(g)
+        want = torch.where(assemble.odometry(g.pp_from, g.pp_to), c_pp,
+                           assemble.robust_rho(robust, c_pp, 1.0, mu=mu))
+        torch.testing.assert_close(got, want.sum(-1), **close)
+    assert torch.equal(pgo.robust_global_cost(trial, robust, 1.0, mu=mu),
+                       rho)
+    _, same, same_cur = lk.se2_cost_kernel(trial, robust, 1.0, mu,
+                                           current=trial)
+    assert torch.equal(same, same_cur) and torch.equal(same, rho)
+
+
+@pytest.mark.cuda
+def test_lm_gnc_fleet_runs_the_kernels(cuda_device, monkeypatch):
+    """make_optimize_batch, LM 20 with gnc-gm on banded-kernel, on a fleet
+    of 4 of intel-1728-gnc10 (the cell's request, narrower): the robust
+    kernel once an iteration, the cost kernel once an iteration and once
+    for the guess's χ², and every row rejects the outliers (inlier χ²
+    below 1e-2) as the tensor code's run does."""
+    from rustrobotics_tpu_torch.mapping import pgo
+
+    fleet = _gnc10(cuda_device, 4)
+    run = make_optimize_batch(fleet, num_iterations=20, solver="lm",
+                              tolerance=0.0, backend="banded-kernel",
+                              robust="gnc-gm", robust_delta=1.0)
+    before = dict(lk.LAUNCHES)
+    out_k, err_k, it = run(fleet)
+    torch.cuda.synchronize()
+    assert it.tolist() == [20] * 4
+    assert lk.LAUNCHES["se2_linearize"] == before["se2_linearize"] + 20
+    assert lk.LAUNCHES["se2_lm_cost"] == before["se2_lm_cost"] + 21
+    monkeypatch.setattr(lk, "takes_kernel", lambda *args: False)
+    out_p, err_p, _ = run(fleet)
+    torch.testing.assert_close(err_k[:, 0], err_p[:, 0], rtol=1e-5, atol=0)
+    from perfbench import harness
+
+    cfg = harness.load_config("intel-1728-gnc10")
+    outlier = torch.as_tensor(harness.generator(cfg).structure(cfg)[
+        "outlier"], device=cuda_device)
+    for out in (out_k, out_p):
+        c_pp, _, _ = pgo._edge_chi2(out)
+        assert bool((c_pp[:, ~outlier].sum(-1) < 1e-2).all()), c_pp.shape

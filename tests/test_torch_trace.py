@@ -131,3 +131,30 @@ def test_xla_trace_writes_the_spans(tmp_path):
     names = {e.get("name") for e in json.loads(path.read_text())[
         "traceEvents"]}
     assert {"rrt.request", "rrt.linearize", "rrt.update", *BAND} <= names
+
+
+@pytest.mark.parametrize("kind", ["make_optimize", "make_optimize_batch"])
+@pytest.mark.parametrize("robust", [None, "gnc-gm"])
+def test_lm_accept_spans_each_accept_test(kind, robust):
+    """An LM request holds one ``rrt.lm.accept`` an iteration, inside the
+    request and apart from the linearization and the band's spans; on the
+    CPU the trial's costs (``rrt.update``) nest in it."""
+    g = _graph()
+    graph = g if kind == "make_optimize" else pgo.stack_graphs(
+        [g, _graph(seed=1)])
+    run = getattr(pgo, kind)(graph, ITERS, solver="lm",
+                             backend="banded-direct", tolerance=0.0,
+                             robust=robust, device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        run(graph)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.name.startswith("rrt.")]
+    accept = [(s, e) for n, s, e in spans if n == "rrt.lm.accept"]
+    assert len(accept) == ITERS
+    (_, r0, r1), = [s for s in spans if s[0] == "rrt.request"]
+    for a, b in accept:
+        assert r0 <= a <= b <= r1
+        inner = [n for n, s, e in spans if a <= s and e <= b]
+        assert inner.count("rrt.lm.accept") == 1
+        assert "rrt.update" in inner
+        assert not set(inner) & {"rrt.linearize", *BAND}
