@@ -31,7 +31,12 @@ Phases; any failure ends the script with a non-zero exit code:
    device operation a call (torch.profiler: one kernel, no memset or
    copy); whether the band equals the plain index_add_ on the CPU bit for
    bit is printed. K1/K2 over the fleet's batch axis against the unbatched
-   K1/K2 on each graph (bit-equal expected; gated at PARITY_TOL).
+   K1/K2 on each graph (bit-equal expected; gated at PARITY_TOL). K1 on a
+   fleet of K1_FLEET = 32 (corridor-1728 and 31 jittered copies; the robust
+   fleet cell's kb 512 and B, where K1 takes strips of 64 rows, which it
+   must report): against factorize_plain at PARITY_TOL, each graph bit-equal
+   to the unbatched K1 (32-row strips), K1_WORK as k1_work counts it, one
+   launch a call.
    The same for sphere-2500 (sphere_graph: sphere2500's shape, 2500 SE3
    poses, 4949 edges, n=15000, kb=384, nb=40): K1, K2 and the solve at
    λ = 0.01 (SPHERE_PARITY_TOL), K4 on its triplets, K5 and batched K1/K2
@@ -259,8 +264,8 @@ Phases; any failure ends the script with a non-zero exit code:
    printed beside them); the stages of one GN iteration
    of each main path; GN iterations/s end to end for each (and the
    banded-kernel GN's MFU from roofline.pgo_iteration_flops), and the
-   fleets' graph-iterations/s against one graph's; K1, K2, K4 and K5 again
-   at sphere-2500's kb = 384; L1 on corridor-1728 and the fleet of 8 (calls
+   fleets' graph-iterations/s against one graph's; K1 on its fleet of 32;
+   K1, K2, K4 and K5 again at sphere-2500's kb = 384; L1 on corridor-1728 and the fleet of 8 (calls
    queued back to back) beside system_values_plain and its bound, and the
    host's time a call of both; the robust L1 on the gnc fleet of 8 at μ
    halfway, and LC on corridor-1728-gnc and that fleet, the same way;
@@ -270,7 +275,8 @@ Phases; any failure ends the script with a non-zero exit code:
    factorization and the panel kernel's µs per launch;
 7. one JSON line describing the kernels (K1, K2, K4 and K5 with their
    kb = 384 readings under *_3d keys, K3 with its fleet-of-8 readings
-   under *_b8 keys; K1, K2 and K4 with the launches of phases j, k and m
+   under *_b8 keys; K1 with its fleet of 32's readings under *_b32 keys;
+   K1, K2 and K4 with the launches of phases j, k and m
    under bootstrap_launches, posegraph_launches and frontend_launches,
    and every kernel with filters_launches, slam_launches,
    parallel_launches, blocks_launches and cli_launches, 0: the filter,
@@ -340,6 +346,9 @@ ASSEMBLE_ULPS = 16.0
 # The fleet: corridor-1728 and FLEET - 1 copies with poses jittered by
 # N(0, FLEET_JITTER²) from numpy's default_rng(FLEET_SEED).
 FLEET, FLEET_JITTER, FLEET_SEED = 8, 0.05, 0
+# K1's fleet at the robust fleet cell's shape (kb 512, B 32), where K1
+# takes strips of 64 rows: the same corridor-1728 and jittered copies.
+K1_FLEET = 32
 
 SOURCES = ("band_chol", "banded_matvec", "band_assemble", "se2_linearize")
 
@@ -1326,6 +1335,40 @@ def main_path(device):
     return gn, g32, launches
 
 
+def k1_need(nb, kb):
+    """(FLOP, bytes) of one graph's K1: what the function needs, not what
+    the kernels do. Every block row takes chol(D̂_j) and its triangular
+    inverse, kb³/3 FLOP each; rows j > 0 also take lp_j = Lcoup_j
+    ldinv_{j-1}ᵀ against a triangle (kb³) and the symmetric lp_j lp_jᵀ
+    (kb³). dsym and ldinv count by their lower triangles, lcoup and lp
+    from row 1 (lcoup_0 is never read, lp_0 is 0)."""
+    tri, sq = kb * (kb + 1) // 2, kb * kb
+    return ((nb * 2.0 / 3.0 + (nb - 1) * 2.0) * kb ** 3,
+            4 * (2 * nb * tri + 2 * (nb - 1) * sq))
+
+
+def k1_fleet_times(kf):
+    """Phase 5 for K1's fleet of K1_FLEET: the kernel and factorize_plain
+    (device ms a call, queued back to back) and the bound of the fleet's
+    need, under *_b32 keys."""
+    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+
+    dsym, lcoup = kf["dsym"], kf["lcoup"]
+    batch, nb, kb = dsym.shape[:3]
+    flops, nbytes = k1_need(nb, kb)
+    bound, by = bound_ms(batch * nbytes, batch * flops)
+    out = dict(ms_b32=queued_ms(lambda: bk.factorize_kernel(dsym, lcoup),
+                                calls=10),
+               plain_ms_b32=queued_ms(lambda: bk.factorize_plain(dsym, lcoup),
+                                      calls=3),
+               bound_ms_b32=bound)
+    print(f"[times] factorize (K1 fleet B={batch}, kb={kb}): kernel "
+          f"{out['ms_b32']:.4f} ms, plain {out['plain_ms_b32']:.4f} ms, bound "
+          f"{bound:.6f} ms ({by}), kernel/bound "
+          f"{out['ms_b32'] / bound:.1f}", flush=True)
+    return out
+
+
 def times(p, gn, g32, name="corridor-1728"):
     """Phase 5: kernel times with bounds and yardsticks, GN stage
     breakdown and GN iterations/s."""
@@ -1359,15 +1402,8 @@ def times(p, gn, g32, name="corridor-1728"):
     l_dense = torch.linalg.cholesky(hs)
     b_dense = (p["b"].float() / d)[:, None]
 
-    # What the function needs, not what the kernels do. Every block row
-    # takes chol(D̂_j) and its triangular inverse, kb³/3 FLOP each; rows
-    # j > 0 also take lp_j = Lcoup_j ldinv_{j-1}ᵀ against a triangle (kb³)
-    # and the symmetric lp_j lp_jᵀ (kb³). dsym and ldinv count by their
-    # lower triangles, lcoup and lp from row 1 (lcoup_0 is never read,
-    # lp_0 is 0).
     tri, sq = kb * (kb + 1) // 2, kb * kb
-    k1_flops = (nb * 2.0 / 3.0 + (nb - 1) * 2.0) * kb ** 3
-    k1_bytes = 4 * (2 * nb * tri + 2 * (nb - 1) * sq)
+    k1_flops, k1_bytes = k1_need(nb, kb)
     # each sweep: a triangular GEMV with ldinv_j (kb² FLOP), and for
     # j > 0 a full one with lp_j (2 kb²); ldinv, lp, bp in, x out
     k2_flops = 2.0 * (nb + 2 * (nb - 1)) * sq
@@ -1724,9 +1760,10 @@ def cg_times(k3, gn, g32):
     return out
 
 
-def fleet_graphs(device):
-    """Phase 3's and 4c's fleet in f64: corridor-1728 and FLEET - 1 copies
-    with poses jittered by N(0, FLEET_JITTER²) (numpy, FLEET_SEED)."""
+def fleet_graphs(device, count=FLEET):
+    """Phase 3's and 4c's fleet in f64: corridor-1728 and count - 1 copies
+    with poses jittered by N(0, FLEET_JITTER²) (numpy, FLEET_SEED; the
+    first FLEET of a larger count are the fleet's)."""
     import numpy as np
     import torch
 
@@ -1735,7 +1772,7 @@ def fleet_graphs(device):
     poses = g.poses2.cpu().numpy()
     return [g] + [g.replace(poses2=torch.as_tensor(
         poses + rng.normal(0.0, FLEET_JITTER, poses.shape), device=device))
-        for _ in range(FLEET - 1)]
+        for _ in range(count - 1)]
 
 
 def assemble_errors(bl, vals):
@@ -1899,6 +1936,71 @@ def counted_plain_scatter():
 
 def max_rel(got, want, sel):
     return float(((got[sel] - want[sel]).abs() / want[sel]).max())
+
+
+def k1_fleet_parity(bl, device, tol=PARITY_TOL):
+    """Phase 3 for K1 at the robust fleet cell's shape: corridor-1728 and
+    K1_FLEET - 1 jittered copies at λ = 0.01 in one K1 call, which must
+    take strips of 64 rows; held to factorize_plain (tol) and, graph by
+    graph, to the unbatched K1 (32-row strips) bit for bit. Returns the
+    fleet's K1 inputs and its error against plain."""
+    import torch
+
+    from rustrobotics_tpu_torch.mapping.assemble import system_values
+    from rustrobotics_tpu_torch.mapping.pgo import stack_graphs
+    from rustrobotics_tpu_torch.ops import band_chol_kernels as bk
+    from rustrobotics_tpu_torch.ops.band_assemble_kernels import (
+        band_assemble_kernel,
+    )
+    from rustrobotics_tpu_torch.ops.band_chol import (
+        _prepare_blocks,
+        split_blocks,
+    )
+
+    batch = K1_FLEET
+    vals, _, _ = system_values(stack_graphs(fleet_graphs(device, batch)),
+                               LM_LAMBDA0)
+    dsym, lcoup = split_blocks(_prepare_blocks(bl, vals.float(),
+                                               band_assemble_kernel)[0])
+    print(f"[parity] K1 fleet: B={batch}, corridor-1728 and {batch - 1} "
+          f"jittered copies; kb={bl.kb} nb={bl.nb}; λ={LM_LAMBDA0}",
+          flush=True)
+    reset_counts()
+    work, heights = dict(bk.K1_WORK), dict(bk.K1_STRIP_ROWS)
+    ld_b, lp_b = bk.factorize_kernel(dsym, lcoup)
+    added = {k: bk.K1_WORK[k] - work[k] for k in work}
+    rows = {r: bk.K1_STRIP_ROWS[r] - heights[r] for r in heights}
+    launches = read_counts()["factorize"]
+    print(f"  K1_WORK of the call {added}, calls by strip rows {rows}, "
+          f"launches {launches}", flush=True)
+    require(rows == {32: 0, 64: 1}, "the fleet's K1 takes 64-row strips")
+    require(added == bk.k1_work(bl.nb, bl.kb, batch, 64),
+            "the fleet's K1_WORK is k1_work's at 64-row strips")
+    require(launches == 1, "one K1 launch for the fleet")
+    ld_p, lp_p = bk.factorize_plain(dsym, lcoup)
+    k1 = max_eye_residual(ld_b, factor_of(ld_p))
+    lp = float((lp_b - lp_p).abs().max())
+    del ld_p, lp_p
+    equal = True
+    for i in range(batch):
+        ld_1, lp_1 = bk.factorize_kernel(dsym[i].contiguous(),
+                                         lcoup[i].contiguous())
+        equal &= torch.equal(ld_b[i], ld_1) and torch.equal(lp_b[i], lp_1)
+    rows = {r: bk.K1_STRIP_ROWS[r] - heights[r] for r in heights}
+    print(f"  K1 fleet against factorize_plain: max|ldinv_b L_plain - I| "
+          f"{k1:.6g}, max|lp_b - lp_plain| {lp:.6g}; every graph bit-equal "
+          f"to the unbatched K1: {equal}", flush=True)
+    require(bool(torch.isfinite(ld_b).all() and torch.isfinite(lp_b).all()),
+            "the fleet's K1 outputs finite")
+    require(k1 <= tol["k1"] and lp <= tol["lp"],
+            f"the fleet's K1 against factorize_plain within {tol}")
+    require(equal, "every graph of the fleet's K1 bit-equal to the "
+                   "unbatched K1")
+    require(rows == {32: batch, 64: 1},
+            "the unbatched calls take 32-row strips")
+    require(read_counts()["factorize"] == 1 + batch,
+            f"K1 launched once a call ({1 + batch})")
+    return dict(dsym=dsym, lcoup=lcoup, k1=k1)
 
 
 def fleet_path(device, graphs64):
@@ -6183,6 +6285,7 @@ def smoke(refs, slam_refs, gate) -> int:
     graphs64 = fleet_graphs(device)
     k3b = k3_fleet_parity(graphs64)
     fp = fleet_parity(p1728["bl"], graphs64)
+    kf = k1_fleet_parity(p1728["bl"], device)
     from rustrobotics_tpu_torch.mapping.pgo import stack_graphs
 
     l1 = l1_parity("corridor-1728", corridor(1728, device).to(
@@ -6264,6 +6367,7 @@ def smoke(refs, slam_refs, gate) -> int:
     timed["banded_matvec"].update(k3_fleet_times(k3b))
     timed["assemble_b1"] = assemble_times(p1728["bl"], p1728["vals"].float())
     timed["assemble_batch"] = assemble_times(p1728["bl"], fp["vals"])
+    timed["factorize"].update(k1_fleet_times(kf))
     timed["linearize"] = l1_times(l1)
     timed["linearize_batch"] = l1_times(l1b)
     timed["linearize_gnc_batch"] = l1_times(l1g)
@@ -6322,9 +6426,12 @@ def smoke(refs, slam_refs, gate) -> int:
              replaces="rustrobotics_tpu/ops/band_chol_pallas.py:264",
              launches=launches["factorize"], max_abs_err=p1728["k1"],
              fleet_launches=fleet_launches["factorize"],
+             max_abs_err_b32=kf["k1"],
              err_measure="max|ldinv_kernel L_plain - I|, corridor-1728 at "
-                         "the first LM step's damping",
-             ms_measure="device ms a call, 10 calls queued back to back",
+                         "the first LM step's damping; *_b32: its fleet of "
+                         f"{K1_FLEET} (64-row strips)",
+             ms_measure="device ms a call, 10 calls queued back to back "
+                        f"(*_b32: the fleet of {K1_FLEET}; its plain_ms 3)",
              **timed["factorize"]),
         dict(name="band_substitute_f32", route="cuda", source=src,
              replaces="rustrobotics_tpu/ops/band_chol_pallas.py:307",
@@ -6474,7 +6581,8 @@ def smoke(refs, slam_refs, gate) -> int:
                            + marg3["launches"]["se2_lm_cost"])))
     for k in kernels:
         for key in ("ms", "plain_ms", "library_ms", "max_abs_err"):
-            for name in (key, f"{key}_3d", f"{key}_b8", f"{key}_gnc_b8"):
+            for name in (key, f"{key}_3d", f"{key}_b8", f"{key}_b32",
+                         f"{key}_gnc_b8"):
                 if k.get(name) is not None and not math.isfinite(k[name]):
                     fail(f"{k['name']} {name} is not finite")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,12 +29,16 @@
 //      with shuffles (no CTA barrier inside) and one register-tiled
 //      rank-32 update: two CTA barriers a sub-panel, 8 a panel (256 in the
 //      shared-memory kernel it replaced).
-//   4. after panel i, one launch, trail_offdiag: CTAs that form L[rest, i]
-//      = A[rest, i] Linv_ii^T inside each 32x32 lower tile of the trailing
-//      block and subtract L L^T there (the diagonal tiles store L and the
-//      row panel's zeros), side by side with CTAs that form panel row i's
-//      Linv[i, :i] = -Linv_ii (L[i, :i] Linv[:i, :i]), both products in
-//      one CTA per 16-column tile, the zero rows of the triangle skipped.
+//   4. after panel i, one launch, trail_offdiag, over a work list of the
+//      whole fleet: strip items form each strip of UT rows of L[rest, i] =
+//      A[rest, i] Linv_ii^T once a panel step, into lbuf (with the row
+//      panel's zeros); update items, UT x UT lower tiles of the trailing
+//      block, wait on their two strips' flags and subtract L L^T (UT 64,
+//      4x4 outputs a thread, where the items fill the card; else 32, for
+//      latency: trail_rows); side by side, CTAs form panel row i's
+//      Linv[i, :i] = -Linv_ii (L[i, :i] Linv[:i, :i]), both products in one
+//      CTA per 16-column tile through one ring of cp.async stages, the
+//      zero rows of the triangle skipped.
 // The panel kernel is the chain's critical part: each sub-panel's 32
 // dependent steps of shuffles, an IEEE square root and reciprocal and
 // FMAs are latency-bound.
@@ -47,9 +51,10 @@
 // depend on the tile sizes.
 //
 // A fleet of B same-structure graphs runs as B chains side by side: every
-// kernel takes a grid axis over the graphs and per-graph strides, so the
-// host loop issues the same launches for all B. The per-graph arithmetic
-// is that of B = 1, bit for bit (the tile sizes depend on kb alone).
+// kernel takes a grid axis over the graphs (trail_offdiag the items of
+// every graph in one list) and per-graph strides, so the host loop issues
+// the same launches for all B. The per-graph arithmetic is that of B = 1,
+// bit for bit (each output's sum order depends on kb alone).
 //
 // K2 replaces ...::substitute_pallas (kernels _fwd_kernel, _bwd_kernel):
 //     y_j = ldinv_j (b_j - lp_j y_{j-1}),      j = 0 .. nb-1
@@ -77,6 +82,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <utility>
 
@@ -98,7 +104,6 @@ constexpr int GEMM_THREADS = 256; // 16 x 16 threads
 constexpr int BK = 32;            // GEMM depth step
 constexpr int GEMM_STAGES = 4;    // cp.async ring of the GEMM
 constexpr int GLD = BK + 4;       // 144-byte rows: conflict-free float4 reads
-constexpr int TT = 32;            // trail_update tile
 constexpr int OT = 16;            // offdiag_inv column tile
 constexpr int CLUSTER = 8;        // K2's CTAs a graph (the portable size)
 constexpr int SUB_THREADS = 512;  // K2's threads a CTA: 16 warps
@@ -143,7 +148,7 @@ __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_nt(int kb, int K, const float* __restrict__ A, size_t sa,
         const float* __restrict__ B, size_t sb, const float* __restrict__ D,
         size_t sd, float* __restrict__ C, size_t sc, float* __restrict__ z,
-        size_t sz) {
+        size_t sz, unsigned* __restrict__ clr, size_t nclr) {
   constexpr int TM = BM / 16;
   extern __shared__ __align__(16) float gsm[];
   float* As = gsm;                          // GEMM_STAGES x BM x GLD
@@ -232,6 +237,11 @@ gemm_nt(int kb, int K, const float* __restrict__ A, size_t sa,
       z[(size_t)(m0 + r) * kb + n0 + c] = 0.f;
       z[(size_t)(n0 + r) * kb + m0 + c] = 0.f;
     }
+  }
+  if (clr != nullptr) {
+    const size_t cta = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const size_t step = (size_t)gridDim.x * gridDim.y * GEMM_THREADS;
+    for (size_t l = cta * GEMM_THREADS + tid; l < nclr; l += step) clr[l] = 0u;
   }
 }
 
@@ -453,207 +463,357 @@ panel_chol_inv(int kb, const float* __restrict__ a, size_t sa,
     }
 }
 
-constexpr int LDK = PANEL + 4;  // k-major rows of 128 columns
-constexpr int LDT = TT + 4;     // k-major rows of a TT-row strip
-constexpr size_t TRAIL_SMEM =
-    (size_t)(PANEL * LDK + 4 * PANEL * LDT) * sizeof(float);
+// The trailing update after diagonal panel i (at column o) works on the
+// rows r0 = o + PANEL .. kb in strips of UT rows. A strip item forms
+// L[strip, i] = a[strip, o:o+PANEL] Linv_ii^T once, into lbuf; an update
+// item takes a lower UT x UT tile (tm, tn) of a[r0:, r0:] and subtracts
+// L_tm L_tn^T there, reading the two strips from lbuf. Both hold their
+// operands row-major in shared memory, a row's PANEL k-values at stride
+// LDS (33 16-byte groups: the 16-byte reads of a quarter warp's 8 rows
+// hit 8 bank groups), loaded by cp.async in NSUB groups of SUB k, so the
+// FMAs on one group run while the next lands. Thread (ty, tx) of 16 x 16
+// holds rows ty + 16 i (i < UT / 16) and columns tx + 16 j of its outputs:
+// 4x4 an update tile at UT = 64, 2x2 at UT = 32.
+constexpr int LDS = PANEL + 4;
+constexpr int MIN_UT = 32;
+// offdiag_tile's ring: OSTAGES stages of PANEL rows x SUB k of A and SUB
+// k-rows x OT of B; T (PANEL x LDB_O) fills the B stages exactly.
+constexpr int OSTAGES = 4;
+constexpr int LDA_O = SUB + 4;
+constexpr int LDB_O = OT + 4;
+static_assert(OSTAGES * SUB == PANEL, "T takes the B stages' place");
+constexpr size_t OFFDIAG_SMEM =
+    (size_t)OSTAGES * (PANEL * LDA_O + SUB * LDB_O) * sizeof(float);
+template <int UT>
+constexpr size_t trail_smem() {
+  return std::max({(UT + PANEL) * LDS * sizeof(float),  // a strip
+                   2 * UT * LDS * sizeof(float),          // an update tile
+                   OFFDIAG_SMEM});
+}
 
-// dst[c * ld + r] = src[r * kb + c] for ROWS x PANEL floats (a transposed
-// copy), by a CTA of 256 threads: 16-byte loads, lanes on consecutive
-// rows, all of a thread's loads issued before its stores.
-template <int ROWS>
-__device__ __forceinline__ void stage_cols(float* dst, int ld,
-                                           const float* __restrict__ src,
-                                           int kb) {
-  constexpr int N = ROWS * PANEL / 4 / 256;
-  float4 v[N];
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int l = threadIdx.x + 256 * u;
-    v[u] = *reinterpret_cast<const float4*>(src + (size_t)(l % ROWS) * kb +
-                                            (l / ROWS) * 4);
-  }
-#pragma unroll
-  for (int u = 0; u < N; ++u) {
-    const int l = threadIdx.x + 256 * u;
-    float* d = dst + (l / ROWS) * 4 * ld + l % ROWS;
-    d[0] = v[u].x;
-    d[ld] = v[u].y;
-    d[2 * ld] = v[u].z;
-    d[3 * ld] = v[u].w;
+// UT of a call, from the first panel step's work list and the card's
+// resident CTAs (fill, TRAIL_CTAS an SM): 64 where its 64x64 update tiles
+// over the fleet fill the card, or where one graph's 32-row items (strips
+// and tiles) alone do, else 32. Where the items are few, a step's time is
+// the latency of its two dependent phases (a strip, then a tile), which
+// shorter strips and tiles cut. On an H100 (fill 264) the rule gives the
+// faster height at every shape timed with both: 32 at kb 384, B 1 and at
+// kb 512, B 1 and 8; 64 at kb 512, B 16 and 32 and at kb 1024, B 1 and 8.
+constexpr int TRAIL_CTAS = 2;
+int trail_rows(int kb, int batch, long long fill) {
+  const long long t64 = (kb - PANEL) / 64, t32 = (kb - PANEL) / 32;
+  const bool fleet_fills = batch * (t64 * (t64 + 1) / 2) >= fill;
+  const bool graph_fills = t32 + t32 * (t32 + 1) / 2 >= fill;
+  return fleet_fills || graph_fills ? 64 : 32;
+}
+
+// Rows [r_lo, r_hi) of src (row stride kb), k-columns [SUB q, SUB q + SUB),
+// into dst at stride LDS, 16 bytes a cp.async, by a CTA of 256 threads.
+__device__ __forceinline__ void stage_k(float* dst, const float* src, int kb,
+                                        int r_lo, int r_hi, int q) {
+  constexpr int G = SUB / 4;  // 16-byte groups a row
+  for (int l = threadIdx.x; l < (r_hi - r_lo) * G; l += 256) {
+    const int r = r_lo + l / G, c = SUB * q + (l % G) * 4;
+    cp_async16(dst + r * LDS + c, src + (size_t)r * kb + c);
   }
 }
 
-// Diagonal panel at column o: for lower tile (tm, tn) (number t) of the
-// TT x TT tiles of the trailing block a[r0:, r0:], r0 = o + PANEL: the
-// strips L_m = a[rows m, o:o+PANEL] Linv_ii^T (and L_n),
-// then a[m, n] -= L_m L_n^T. Diagonal tiles store L_m in lbuf. Operands
-// are held k-major in shared memory for 16-byte reads. Warp w forms
-// columns 32 (w % 4) .. of the strips, lane 4 x 4 outputs of each; Linv_ii
-// is lower triangular, so the warp's k-range ends at its columns' end.
-__device__ __forceinline__ void trail_tile(int kb, int o, int t,
-                                           float* __restrict__ a,
+// k-group Q of a strip: acc[i][j] += a[r, k] Linv_ii[c, k] for k in
+// [SUB Q, SUB Q + SUB), in order, on the columns c = tx + 16 j whose
+// 32-column block j / 2 reaches that far (j / 2 >= Q).
+template <int TI, int Q>
+__device__ __forceinline__ void strip_group(float (&acc)[TI][8],
+                                            const float* as, const float* ls,
+                                            int ty, int tx) {
+  cp_async_wait<NSUB - 1 - Q>();
+  __syncthreads();
+#pragma unroll 2
+  for (int k = SUB * Q; k < SUB * (Q + 1); k += 4) {
+    float4 x[TI], y[8];
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+      x[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * LDS + k);
+#pragma unroll
+    for (int j = 2 * Q; j < 8; ++j)
+      y[j] = *reinterpret_cast<const float4*>(ls + (tx + 16 * j) * LDS + k);
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+#pragma unroll
+      for (int j = 2 * Q; j < 8; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+  }
+}
+
+// Strip s: L[r, c] = sum_k a[r, o + k] Linv_ii[c, k] for its UT rows and
+// the PANEL columns, one FMA chain a value from k = 0 up to the end of
+// c's 32-column block (Linv_ii is lower triangular), into lbuf; then the
+// row panel's zeros above the diagonal in these rows' columns of linv.
+template <int UT>
+__device__ __forceinline__ void strip_item(int kb, int o, int s,
+                                           const float* __restrict__ a,
                                            float* __restrict__ linv,
                                            float* __restrict__ lbuf,
                                            float* smem) {
-  float* lt = smem;                  // Linv_ii^T: lt[k * LDK + c] = Linv[c, k]
-  float* at = lt + PANEL * LDK;      // strips m, n of a, k-major: 2 x PANEL x LDT
-  float* ltt = at + 2 * PANEL * LDT; // strips of L, k-major
-  int tm = 0;
-  while (t > tm) t -= ++tm;
-  const int tn = t, r0 = o + PANEL;
-  const int rows[2] = {r0 + tm * TT, r0 + tn * TT};
-  const int ns = (tm == tn) ? 1 : 2;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  stage_cols<PANEL>(lt, LDK, linv + (size_t)o * kb + o, kb);
-  for (int s = 0; s < ns; ++s)
-    stage_cols<TT>(at + s * PANEL * LDT, LDT, a + (size_t)rows[s] * kb + o, kb);
-  __syncthreads();
-  {
-    const int rr = (warp / 4) * 16 + (lane / 8) * 4;   // 4 strip rows
-    const int cc = (warp % 4) * 32 + (lane % 8) * 4;   // 4 columns of L
-    const int kend = (warp % 4) * 32 + 32;
-    float acc[2][4][4] = {};
-    for (int k = 0; k < kend; ++k) {
-      const float4 l = *reinterpret_cast<const float4*>(lt + k * LDK + cc);
-      const float lv[4] = {l.x, l.y, l.z, l.w};
+  constexpr int TI = UT / 16;
+  float* as = smem;           // UT x LDS: as[r * LDS + k] = a[r0 + r, o + k]
+  float* ls = as + UT * LDS;  // PANEL x LDS: ls[c * LDS + k] = Linv_ii[c, k]
+  const int r0 = o + PANEL + UT * s;
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        if (s == ns) break;
-        const float4 v =
-            *reinterpret_cast<const float4*>(at + (s * PANEL + k) * LDT + rr);
-        const float av[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            acc[s][i][q] = fmaf(av[i], lv[q], acc[s][i][q]);
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      if (s == ns) break;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        *reinterpret_cast<float4*>(ltt + (s * PANEL + cc + q) * LDT + rr) =
-            make_float4(acc[s][0][q], acc[s][1][q], acc[s][2][q], acc[s][3][q]);
-    }
+  for (int q = 0; q < NSUB; ++q) {
+    stage_k(as, a + (size_t)r0 * kb + o, kb, 0, UT, q);
+    // Linv_ii[c, k] = 0 for k > c: group q is read by rows c >= SUB q
+    stage_k(ls, linv + (size_t)o * kb + o, kb, SUB * q, PANEL, q);
+    cp_async_commit();
   }
-  __syncthreads();
-  if (ns == 1) {
-    for (int l = tid; l < TT * PANEL; l += 256)
-      lbuf[(size_t)(rows[0] + l / PANEL) * kb + o + l % PANEL] =
-          ltt[(l % PANEL) * LDT + l / PANEL];
-    // the row panel's zeros above the diagonal, in this tile's columns
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int l = tid; l < PANEL * TT / 4; l += 256)
-      *reinterpret_cast<float4*>(linv + (size_t)(o + l / (TT / 4)) * kb +
-                                 rows[0] + 4 * (l % (TT / 4))) = zero;
-  }
-  const float* lm = ltt;
-  const float* ln = ltt + (ns - 1) * PANEL * LDT;
-  const int ur = (tid / 16) * 2, uc = (tid % 16) * 2;  // 2 x 2 outputs
-  float acc[2][2];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[TI][8] = {};
+  strip_group<TI, 0>(acc, as, ls, ty, tx);
+  strip_group<TI, 1>(acc, as, ls, ty, tx);
+  strip_group<TI, 2>(acc, as, ls, ty, tx);
+  strip_group<TI, 3>(acc, as, ls, ty, tx);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < TI; ++i)
 #pragma unroll
-    for (int q = 0; q < 2; ++q)
-      acc[i][q] = a[(size_t)(rows[0] + ur + i) * kb + rows[1] + uc + q];
-#pragma unroll 8
-  for (int k = 0; k < PANEL; ++k) {
-    const float2 x = *reinterpret_cast<const float2*>(lm + k * LDT + ur);
-    const float2 y = *reinterpret_cast<const float2*>(ln + k * LDT + uc);
-    acc[0][0] = fmaf(-x.x, y.x, acc[0][0]);
-    acc[0][1] = fmaf(-x.x, y.y, acc[0][1]);
-    acc[1][0] = fmaf(-x.y, y.x, acc[1][0]);
-    acc[1][1] = fmaf(-x.y, y.y, acc[1][1]);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      a[(size_t)(rows[0] + ur + i) * kb + rows[1] + uc + q] = acc[i][q];
+    for (int j = 0; j < 8; ++j)
+      lbuf[(size_t)(r0 + ty + 16 * i) * kb + o + tx + 16 * j] = acc[i][j];
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int l = tid; l < PANEL * UT / 4; l += 256)
+    *reinterpret_cast<float4*>(linv + (size_t)(o + l / (UT / 4)) * kb + r0 +
+                               4 * (l % (UT / 4))) = zero;
 }
 
-constexpr size_t OFFDIAG_SMEM =
-    (size_t)(PANEL * LDK + 2 * PANEL * OT) * sizeof(float);
+// k-group Q of an update tile: acc[i][j] -= L_m[k] L_n[k] in order.
+template <int TI, int Q>
+__device__ __forceinline__ void update_group(float (&acc)[TI][TI],
+                                             const float* ms, const float* ns,
+                                             int ty, int tx) {
+  cp_async_wait<NSUB - 1 - Q>();
+  __syncthreads();
+#pragma unroll 2
+  for (int k = SUB * Q; k < SUB * (Q + 1); k += 4) {
+    float4 x[TI], y[TI];
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+      x[i] = *reinterpret_cast<const float4*>(ms + (ty + 16 * i) * LDS + k);
+#pragma unroll
+    for (int j = 0; j < TI; ++j)
+      y[j] = *reinterpret_cast<const float4*>(ns + (tx + 16 * j) * LDS + k);
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+#pragma unroll
+      for (int j = 0; j < TI; ++j) fma4(acc[i][j], x[i], y[j]);
+  }
+}
 
-// Panel row k of ldinv_j (rows o = k PANEL), column tile ct of width OT:
-// T = L[o:o+PANEL, c0:o] Linv[c0:o, c0:c0+OT]
-// (the triangle Linv[:o, :o] is zero above row c0 in these columns), in
-// chunks of PANEL columns of L, then Linv[o:o+PANEL, c0:c0+OT] = -Linv_kk
-// T, the zero upper triangle of Linv_kk skipped. L's chunk and Linv_kk are
-// held k-major; thread: rows rr .. rr+3, columns cc, cc+1.
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void store_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+// Update tile t (lower, tm >= tn) of the UT x UT tiles of a[r0:, r0:]:
+// once strips tm and tn are in lbuf (their flags read stamp), a[m, n] -=
+// sum_k L[m, k] L[n, k], one FMA chain an element from a[m, n] over k = 0
+// .. PANEL - 1 in order. A diagonal tile at UT = 64 also writes its upper
+// 32-block, which nothing reads.
+template <int UT>
+__device__ __forceinline__ void update_item(int kb, int o, int t,
+                                            float* __restrict__ a,
+                                            const float* lbuf,
+                                            const unsigned* flags,
+                                            unsigned stamp, float* smem) {
+  constexpr int TI = UT / 16;
+  int tm = 0;
+  while (t > tm) t -= ++tm;
+  const int tn = t;
+  const int m0 = o + PANEL + UT * tm, n0 = o + PANEL + UT * tn;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[TI][TI];
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TI; ++j)
+      acc[i][j] = a[(size_t)(m0 + ty + 16 * i) * kb + n0 + tx + 16 * j];
+  if (tid == 0) {  // polls that back off leave L2 and the SM to the strips
+    while (load_acquire(flags + tm) != stamp) __nanosleep(64);
+    while (load_acquire(flags + tn) != stamp) __nanosleep(64);
+  }
+  __syncthreads();
+  float* ms = smem;  // ms[r * LDS + k] = L[m0 + r, k]
+  float* ns = tm == tn ? ms : ms + UT * LDS;
+#pragma unroll
+  for (int q = 0; q < NSUB; ++q) {
+    stage_k(ms, lbuf + (size_t)m0 * kb + o, kb, 0, UT, q);
+    if (tm != tn) stage_k(ns, lbuf + (size_t)n0 * kb + o, kb, 0, UT, q);
+    cp_async_commit();
+  }
+  update_group<TI, 0>(acc, ms, ns, ty, tx);
+  update_group<TI, 1>(acc, ms, ns, ty, tx);
+  update_group<TI, 2>(acc, ms, ns, ty, tx);
+  update_group<TI, 3>(acc, ms, ns, ty, tx);
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TI; ++j)
+      a[(size_t)(m0 + ty + 16 * i) * kb + n0 + tx + 16 * j] = acc[i][j];
+}
+
+// Panel row i of ldinv_j (rows o = i PANEL), column tile ct of width OT
+// (columns c0 = OT ct ..): T = L[o:o+PANEL, c0:o] Linv[c0:o, c0:c0+OT]
+// (the triangle Linv[:o, :o] is zero above row c0 in these columns), then
+// Linv[o:o+PANEL, c0:c0+OT] = -Linv_ii T, the zero upper triangle of
+// Linv_ii skipped a 16-row band at a time (row r's sum ends at
+// 16 (r / 16) + 16). Each output is one FMA chain over k ascending. The A
+// operands, L's rows of the panel row and then Linv_ii, stream through a
+// ring of OSTAGES cp.async stages of SUB k-columns, row-major (stride
+// LDA_O: the 16-byte reads of a warp's 8 rows hit 8 bank groups); Linv's
+// rows of the first product ride the same stages, and T takes their place
+// for the second. Thread (ty, tx) of 64 x 4: rows ty, ty + 64, columns
+// c0 + 4 tx .. + 3.
 __device__ __forceinline__ void offdiag_tile(int kb, int o, int ct,
                                              float* __restrict__ linv,
                                              const float* __restrict__ lbuf,
                                              float* smem) {
-  float* lt = smem;                 // PANEL x LDK: L's chunk, then Linv_kk
-  float* bch = lt + PANEL * LDK;    // PANEL x OT: a chunk of Linv
-  float* ts = bch + PANEL * OT;     // PANEL x OT: T
-  const int c0 = ct * OT;
-  const int tid = threadIdx.x, rr = (tid / 8) * 4, cc = (tid % 8) * 2;
-  float acc[4][2] = {};
-  auto step = [&](const float* a_col, const float* b_row) {
-    const float4 x = *reinterpret_cast<const float4*>(a_col + rr);
-    const float2 y = *reinterpret_cast<const float2*>(b_row + cc);
-    const float av[4] = {x.x, x.y, x.z, x.w};
+  float* as = smem;                            // OSTAGES x PANEL x LDA_O
+  float* bs = as + OSTAGES * PANEL * LDA_O;    // OSTAGES x SUB x LDB_O
+  float* ts = bs;                              // then T: PANEL x LDB_O
+  const int c0 = ct * OT, k0 = c0 / SUB * SUB;
+  const int n1 = (o - k0) / SUB, n = n1 + NSUB;  // k-groups of each product
+  const int tid = threadIdx.x, tx = tid % 4, ty = tid / 4;
+  auto load = [&](int t) {
+    float* a = as + (t % OSTAGES) * PANEL * LDA_O;
+    const float* src = t < n1 ? lbuf + (size_t)o * kb + k0 + SUB * t
+                              : linv + (size_t)o * kb + o + SUB * (t - n1);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      acc[i][0] = fmaf(av[i], y.x, acc[i][0]);
-      acc[i][1] = fmaf(av[i], y.y, acc[i][1]);
+    for (int u = 0; u < PANEL * SUB / 4 / 256; ++u) {
+      const int l = tid + 256 * u, r = l / (SUB / 4), c = (l % (SUB / 4)) * 4;
+      cp_async16(a + r * LDA_O + c, src + (size_t)r * kb + c);
+    }
+    if (t < n1 && tid < SUB * OT / 4) {
+      const int r = tid / (OT / 4), c = (tid % (OT / 4)) * 4;
+      cp_async16(bs + ((t % OSTAGES) * SUB + r) * LDB_O + c,
+                 linv + (size_t)(k0 + SUB * t + r) * kb + c0 + c);
     }
   };
-  for (int p0 = c0 / PANEL * PANEL; p0 < o; p0 += PANEL) {
-    stage_cols<PANEL>(lt, LDK, lbuf + (size_t)o * kb + p0, kb);
-    for (int l = tid; l < PANEL * OT; l += 256)
-      bch[l] = linv[(size_t)(p0 + l / OT) * kb + c0 + l % OT];
+  // acc[i][q] += x[i][k] y[k][q] over k of [k_lo, SUB), x the rows of A
+  // (only those with k < kend[i] in the second product), y a k-row of B
+  float acc[2][4] = {};
+  auto group = [&](const float* a, const float* b, int k_lo,
+                   const int (&kend)[2]) {
+#pragma unroll 2
+    for (int k = k_lo; k < SUB; k += 4) {
+      float4 x[2], y[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        x[i] = *reinterpret_cast<const float4*>(a + (ty + 64 * i) * LDA_O + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        y[q] = *reinterpret_cast<const float4*>(b + (k + q) * LDB_O + 4 * tx);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (k >= kend[i]) continue;
+        const float xv[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[i][0] = fmaf(xv[q], y[q].x, acc[i][0]);
+          acc[i][1] = fmaf(xv[q], y[q].y, acc[i][1]);
+          acc[i][2] = fmaf(xv[q], y[q].z, acc[i][2]);
+          acc[i][3] = fmaf(xv[q], y[q].w, acc[i][3]);
+        }
+      }
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < OSTAGES - 1; ++t) {
+    if (t < n) load(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n; ++t) {
+    cp_async_wait<OSTAGES - 2>();
+    // also orders the reads of the stage loaded next (group t - 1) first
     __syncthreads();
-    // rows of the chunk above c0 are zero in these columns: start at c0
-#pragma unroll 4
-    for (int p = max(c0 - p0, 0); p < PANEL; ++p)
-      step(lt + p * LDK, bch + p * OT);
-    __syncthreads();
+    if (t + OSTAGES - 1 < n) load(t + OSTAGES - 1);
+    cp_async_commit();
+    const float* a = as + (t % OSTAGES) * PANEL * LDA_O;
+    if (t < n1) {
+      const int all[2] = {SUB, SUB};
+      group(a, bs + (t % OSTAGES) * SUB * LDB_O, t == 0 ? c0 - k0 : 0, all);
+      if (t == n1 - 1) {
+        __syncthreads();  // every read of B's stages done: T takes them
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          *reinterpret_cast<float4*>(ts + (ty + 64 * i) * LDB_O + 4 * tx) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+        }
+      }
+    } else {
+      const int p0 = SUB * (t - n1);
+      int kend[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        kend[i] = (ty + 64 * i) / 16 * 16 + 16 - p0;
+      group(a, ts + p0 * LDB_O, 0, kend);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ts[(rr + i) * OT + cc] = acc[i][0];
-    ts[(rr + i) * OT + cc + 1] = acc[i][1];
-    acc[i][0] = acc[i][1] = 0.f;
-  }
-  stage_cols<PANEL>(lt, LDK, linv + (size_t)o * kb + o, kb);
-  __syncthreads();
-  // Linv_kk[r, p] = 0 for p > r: the warp's rows end at 16 warp + 15
-  const int pend = (tid / 32) * 16 + 16;
-#pragma unroll 4
-  for (int p = 0; p < pend; ++p) step(lt + p * LDK, ts + p * OT);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* out = linv + (size_t)(o + rr + i) * kb + c0 + cc;
-    out[0] = -acc[i][0];
-    out[1] = -acc[i][1];
-  }
+  for (int i = 0; i < 2; ++i)
+    *reinterpret_cast<float4*>(linv + (size_t)(o + ty + 64 * i) * kb + c0 +
+                               4 * tx) =
+        make_float4(-acc[i][0], -acc[i][1], -acc[i][2], -acc[i][3]);
 }
 
-// The launch after diagonal panel i (at column o), graph blockIdx.y: CTAs
-// blockIdx.x < n_trail take the lower tiles of the trailing update
-// (trail_tile), the others the column tiles of panel row i's off-diagonal
-// inverse (offdiag_tile, i >= 1). The two read what earlier launches wrote
-// and write disjoint parts of a, lbuf and linv, so they run side by side.
-constexpr size_t TRAIL_OFFDIAG_SMEM =
-    TRAIL_SMEM > OFFDIAG_SMEM ? TRAIL_SMEM : OFFDIAG_SMEM;
-__global__ void __launch_bounds__(256, 1)
-trail_offdiag(int kb, int o, int n_trail, float* __restrict__ a, size_t sa,
-              float* __restrict__ linv, size_t sl, float* __restrict__ lbuf,
-              size_t sw) {
+// The launch after diagonal panel i (at column o), one CTA an item of a
+// work list over the fleet, in order: every graph's strips (strip_item),
+// every graph's column tiles of panel row i's off-diagonal inverse
+// (offdiag_tile, i >= 1), every graph's lower update tiles (update_item).
+// A CTA takes the next item from the launch's ticket, so every strip is
+// claimed, by a running CTA, before any update tile; a strip CTA, which
+// waits on nothing, publishes its strip with a release store of stamp to
+// its flag, and an update tile acquires the flags of its two strips. So
+// no CTA waits on work that is not under way. The strips and the
+// off-diagonal tiles read what earlier launches wrote and write disjoint
+// parts of lbuf and linv. flags: sf a graph, strip s at s.
+template <int UT>
+__global__ void __launch_bounds__(256, TRAIL_CTAS)
+trail_offdiag(int kb, int o, int n_strip, int n_off, int batch,
+              float* __restrict__ a, size_t sa, float* __restrict__ linv,
+              size_t sl, float* __restrict__ lbuf, size_t sw,
+              unsigned* ticket, unsigned* flags, int sf, unsigned stamp) {
   extern __shared__ __align__(16) float smem[];
-  const size_t g = blockIdx.y;
-  if ((int)blockIdx.x < n_trail)
-    trail_tile(kb, o, blockIdx.x, a + g * sa, linv + g * sl, lbuf + g * sw,
-               smem);
-  else
-    offdiag_tile(kb, o, blockIdx.x - n_trail, linv + g * sl, lbuf + g * sw,
-                 smem);
+  __shared__ unsigned claimed;
+  if (threadIdx.x == 0) claimed = atomicAdd(ticket, 1u);
+  __syncthreads();
+  unsigned item = claimed;
+  const unsigned strips = (unsigned)batch * n_strip;
+  const unsigned offs = (unsigned)batch * n_off;
+  if (item < strips) {
+    const size_t g = item / n_strip;
+    const int s = item % n_strip;
+    strip_item<UT>(kb, o, s, a + g * sa, linv + g * sl, lbuf + g * sw, smem);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      store_release(flags + g * sf + s, stamp);
+    }
+  } else if ((item -= strips) < offs) {
+    const size_t g = item / n_off;
+    offdiag_tile(kb, o, item % n_off, linv + g * sl, lbuf + g * sw, smem);
+  } else {
+    item -= offs;
+    const unsigned n_upd = n_strip * (n_strip + 1) / 2;
+    const size_t g = item / n_upd;
+    update_item<UT>(kb, o, item % n_upd, a + g * sa, lbuf + g * sw,
+                    flags + g * sf, stamp, smem);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float s) {
@@ -965,7 +1125,8 @@ template <int BM>
 cudaError_t launch_lp_schur(cudaStream_t s, int batch, int kb, int j,
                             const float* dsym_j, const float* lcoup_j,
                             const float* ldinv_prev, float* lp, float* lp_j,
-                            float* a, size_t gs, size_t ws) {
+                            float* a, size_t gs, size_t ws, unsigned* sync,
+                            size_t nsync) {
   const int nt = kb / BM;
   constexpr size_t smem = gemm_smem<BM>();
   auto lp_gemm = gemm_nt<BM, false, true, false>;
@@ -977,14 +1138,15 @@ cudaError_t launch_lp_schur(cudaStream_t s, int batch, int kb, int j,
   if (j > 0) {
     // lp_j = Lcoup_j ldinv_{j-1}^T
     lp_gemm<<<dim3(nt * nt, batch), GEMM_THREADS, smem, s>>>(
-        kb, kb, lcoup_j, gs, ldinv_prev, gs, nullptr, 0, lp_j, gs, nullptr, 0);
+        kb, kb, lcoup_j, gs, ldinv_prev, gs, nullptr, 0, lp_j, gs, nullptr, 0,
+        nullptr, 0);
     RETURN_IF_ERROR(cudaGetLastError());
   }
   // D̂_j = Dsym_j - lp_j lp_j^T into the running block; at j = 0 the copy,
-  // which also zeroes lp_0
+  // which also zeroes lp_0 and the work lists' tickets and flags
   schur_gemm<<<dim3(nt * (nt + 1) / 2, batch), GEMM_THREADS, smem, s>>>(
       kb, j > 0 ? kb : 0, lp_j, gs, lp_j, gs, dsym_j, gs, a, ws,
-      j > 0 ? nullptr : lp, gs);
+      j > 0 ? nullptr : lp, gs, j > 0 ? nullptr : sync, nsync);
   return cudaGetLastError();
 }
 
@@ -998,28 +1160,46 @@ const char* cuda_error_string(int code) {
 
 // K1. dsym, lcoup: (batch, nb, kb, kb) f32 inputs (dsym symmetric). ldinv,
 // lp: (batch, nb, kb, kb) outputs, every element written, lp[:, 0] = 0.
-// work: batch x 2 kb^2 floats (the running block, then L's sub-diagonal
-// panels).
+// work: work_floats floats, at least batch x 2 kb^2 (the running block,
+// then L's sub-diagonal panels, a graph) + nb kb / PANEL (a ticket for
+// each trail_offdiag launch) + batch (kb - PANEL) / 32 (a flag for each
+// strip); the call clears the tickets and flags itself. items, if not
+// null, gets the strips, update tiles and off-diagonal tiles of the
+// trail_offdiag launches added to its first three counts, and the rows of
+// the call's strips (UT) in its fourth.
 int band_factorize_f32(int device, const float* dsym, const float* lcoup,
-                       float* ldinv, float* lp, float* work, int nb, int kb,
-                       int batch, void* stream) {
+                       float* ldinv, float* lp, float* work,
+                       long long work_floats, int nb, int kb, int batch,
+                       long long* items, void* stream) {
   if (nb < 1 || kb < PANEL || kb % PANEL != 0 || batch < 1 ||
       batch > MAX_BATCH)
     return cudaErrorInvalidValue;
-  RETURN_IF_ERROR(cudaSetDevice(device));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t blk = (size_t)kb * kb;
   const size_t gs = nb * blk;   // graph stride of the band
   const size_t ws = 2 * blk;    // graph stride of work
+  const int np = kb / PANEL;
+  int sms = 0;
+  RETURN_IF_ERROR(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                         device));
+  const int ut = trail_rows(kb, batch, (long long)TRAIL_CTAS * sms);
+  const int sf = (kb - PANEL) / MIN_UT;  // flags a graph: strips at most
+  const size_t nsync = (size_t)nb * np + (size_t)batch * sf;
+  if (work_floats < 0 || (size_t)work_floats < batch * ws + nsync)
+    return cudaErrorInvalidValue;
+  RETURN_IF_ERROR(cudaSetDevice(device));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* a = work;              // running block D̂_j, factored in place
   float* lbuf = work + blk;     // L_j's panels below the diagonal panels
-  const int np = kb / PANEL;
+  unsigned* tickets = reinterpret_cast<unsigned*>(work + batch * ws);
+  unsigned* flags = tickets + (size_t)nb * np;
   RETURN_IF_ERROR(cudaFuncSetAttribute(
       panel_chol_inv, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)PANEL_SMEM));
+  const auto trail = ut == 64 ? trail_offdiag<64> : trail_offdiag<32>;
+  const size_t trail_bytes = ut == 64 ? trail_smem<64>() : trail_smem<32>();
   RETURN_IF_ERROR(cudaFuncSetAttribute(
-      trail_offdiag, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TRAIL_OFFDIAG_SMEM));
+      trail, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)trail_bytes));
+  if (items != nullptr) items[3] = ut;
   for (int j = 0; j < nb; ++j) {
     float* li = ldinv + j * blk;
     const float* prev = j > 0 ? ldinv + (j - 1) * blk : nullptr;
@@ -1027,20 +1207,27 @@ int band_factorize_f32(int device, const float* dsym, const float* lcoup,
     RETURN_IF_ERROR(kb >= 1024
         ? launch_lp_schur<128>(s, batch, kb, j, dsym + j * blk,
                                lcoup + j * blk, prev, lp, lp + j * blk, a, gs,
-                               ws)
+                               ws, tickets, nsync)
         : launch_lp_schur<64>(s, batch, kb, j, dsym + j * blk,
                               lcoup + j * blk, prev, lp, lp + j * blk, a, gs,
-                              ws));
+                              ws, tickets, nsync));
     for (int i = 0; i < np; ++i) {
       const int o = i * PANEL;
       panel_chol_inv<<<batch, PANEL_THREADS, PANEL_SMEM, s>>>(
           kb, a + (size_t)o * kb + o, ws, li + (size_t)o * kb + o, gs);
       RETURN_IF_ERROR(cudaGetLastError());
-      const int nt = (kb - o - PANEL) / TT;
-      const int n_trail = nt * (nt + 1) / 2, n_off = o / OT;
-      if (n_trail + n_off == 0) continue;
-      trail_offdiag<<<dim3(n_trail + n_off, batch), 256, TRAIL_OFFDIAG_SMEM,
-                      s>>>(kb, o, n_trail, a, ws, li, gs, lbuf, ws);
+      const int n_strip = (kb - o - PANEL) / ut, n_off = o / OT;
+      const long long n_upd = (long long)n_strip * (n_strip + 1) / 2;
+      if (items != nullptr) {
+        items[0] += (long long)batch * n_strip;
+        items[1] += batch * n_upd;
+        items[2] += (long long)batch * n_off;
+      }
+      const long long n_items = batch * (n_strip + n_upd + n_off);
+      if (n_items == 0) continue;
+      trail<<<(unsigned)n_items, 256, trail_bytes, s>>>(
+          kb, o, n_strip, n_off, batch, a, ws, li, gs, lbuf, ws,
+          tickets + j * np + i, flags, sf, (unsigned)(j * np + i + 1));
       RETURN_IF_ERROR(cudaGetLastError());
     }
   }

@@ -18,10 +18,13 @@ IEEE f32 with FMA on the CUDA cores.
 Each wrapper takes the plain version for a tensor on the CPU, and only
 then; for a CUDA tensor it launches the kernel or raises. ``LAUNCHES``
 counts the calls of each wrapper that launch its kernel: one a call,
-whatever the batch.
+whatever the batch. ``K1_WORK`` tallies the items of K1's trailing-update
+launches as its host loop issues them, and ``K1_STRIP_ROWS`` its calls at
+each strip height, which the source chooses (``k1_work`` computes the
+items from the shapes and that height).
 
 Both take a fleet's leading batch axis: every kernel of K1's launch
-sequence gets a grid axis over the graphs, so B chains cost one host loop;
+sequence covers all the graphs, so B chains cost one host loop;
 K2 is one launch with a cluster of CTAs per graph.
 
 ``solve_band_kernel`` keeps the contract of ``solve_band_pallas``: RCM,
@@ -41,13 +44,17 @@ from rustrobotics_tpu_torch.ops.batched_tri import chol_blocked, tril_inv
 
 PANEL = 128  # the kernels' panel width; kb must be a multiple of it
 MAX_KB = 2048  # K2 has a kernel for each kb = 128, 256, .., 2048
+OFFDIAG_COLS = 16  # columns of K1's off-diagonal inverse tiles (OT)
 
 LAUNCHES = {"factorize": 0, "substitute": 0}
+K1_WORK = {"strips": 0, "update_tiles": 0, "offdiag_tiles": 0}
+K1_STRIP_ROWS = {32: 0, 64: 0}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # (device, dsym, lcoup, ldinv, lp, work, nb, kb, batch, stream)
-    "band_factorize_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (device, dsym, lcoup, ldinv, lp, work, work_floats, nb, kb, batch,
+    #  items, stream)
+    "band_factorize_f32": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _P],
     # (device, ldinv, lp, bp, y, x, nb, kb, batch, stream)
     "band_substitute_f32": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
@@ -55,6 +62,30 @@ _SIGNATURES = {
 
 def _lib():
     return cuda_lib.load("band_chol", _SIGNATURES)
+
+
+def k1_panel_items(kb, i, rows):
+    """The items of K1's trailing-update launch after diagonal panel i of
+    a block row, for one graph, with strips of ``rows`` rows
+    (``trail_offdiag``'s work list): the first rows of its strips of L, the
+    (row, column) corners of its lower update tiles, the first columns of
+    its off-diagonal inverse tiles."""
+    o = PANEL * i
+    strips = list(range(o + PANEL, kb, rows))
+    tiles = [(m, n) for k, m in enumerate(strips) for n in strips[:k + 1]]
+    return strips, tiles, list(range(0, o, OFFDIAG_COLS))
+
+
+def k1_work(nb, kb, batch, rows):
+    """What one K1 call on (batch, nb, kb, kb) with strips of ``rows``
+    rows adds to ``K1_WORK``."""
+    if rows not in K1_STRIP_ROWS:
+        raise ValueError(f"K1's strips have 32 or 64 rows, not {rows}")
+    counts = dict.fromkeys(K1_WORK, 0)
+    for i in range(kb // PANEL):
+        for key, items in zip(K1_WORK, k1_panel_items(kb, i, rows)):
+            counts[key] += nb * batch * len(items)
+    return counts
 
 
 # ------------------------------------------------------------ plain versions
@@ -124,16 +155,23 @@ def factorize_kernel(dsym, lcoup):
     _check_inputs(d4, l4, shapes=[(batch, nb, kb, kb)] * 2)
     ldinv = torch.empty_like(dsym)
     lp = torch.empty_like(dsym)
-    # per graph: the running block and L's sub-diagonal panels
-    work = torch.empty(batch, 2 * kb * kb, dtype=torch.float32,
-                       device=dsym.device)
+    # per graph the running block and L's sub-diagonal panels; then a
+    # ticket a trailing-update launch and a flag a strip (of 32 rows at
+    # least), which K1 clears
+    work = torch.empty(batch * 2 * kb * kb + nb * (kb // PANEL)
+                       + batch * ((kb - PANEL) // 32),
+                       dtype=torch.float32, device=dsym.device)
+    items = (ctypes.c_longlong * 4)()
     lib = _lib()
     status = lib.band_factorize_f32(
         dsym.device.index, dsym.data_ptr(), lcoup.data_ptr(),
-        ldinv.data_ptr(), lp.data_ptr(), work.data_ptr(), nb, kb, batch,
-        cuda_lib.stream(dsym))
+        ldinv.data_ptr(), lp.data_ptr(), work.data_ptr(), work.numel(), nb,
+        kb, batch, items, cuda_lib.stream(dsym))
     cuda_lib.check(lib, status, "band_factorize_f32")
     LAUNCHES["factorize"] += 1
+    for key, n in zip(K1_WORK, items):
+        K1_WORK[key] += n
+    K1_STRIP_ROWS[items[3]] += 1
     return ldinv, lp
 
 

@@ -9,8 +9,11 @@ machine run it without conftest:
 Every test here needs a CUDA card and skips without one.
 """
 
+import functools
+import hashlib
 import importlib.util
 import pathlib
+import re
 
 import pytest
 import torch
@@ -51,7 +54,7 @@ def _random_band(nb, kb, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kb", [128, 256, 384, 512, 768, 1024])
+@pytest.mark.parametrize("kb", [128, 256, 384, 512, 768, 1024, 2048])
 def test_kernels_match_plain(cuda_device, kb):
     dsym, lcoup, bp = _random_band(3, kb, cuda_device)
     before = dict(bk.LAUNCHES)
@@ -264,8 +267,154 @@ def test_factorize_launches_per_block_row(cuda_device):
     assert len(kernels) <= 12 * nb, len(kernels)
 
 
+def _k1_band(kb, batch, device):
+    """A seeded _random_band system of 3 block rows a graph: (3, kb, kb)
+    at batch 1, else (batch, 3, kb, kb)."""
+    dsym, lcoup, _ = _random_band(3 * batch, kb, device)
+    if batch == 1:
+        return dsym, lcoup
+    return dsym.view(batch, 3, kb, kb), lcoup.view(batch, 3, kb, kb)
+
+
+def _sha256(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+# SHA-256 of (dsym, lcoup) and of K1's (ldinv, lp) on an H100 at commit
+# 2cd3f7bb0cf97ea97ca7a0b58741fd67b0fa9a5c, whose K1 formed the strips of
+# L inside each 32x32 trailing tile: "kb,batch" keys are _k1_band's
+# systems, the others chip_smoke's front-end band (kb 256, nb 21) at
+# λ = FE_BREAK_LAM and at λ = LM_LAMBDA0.
+K1_SHA256 = {
+    "256,1": (
+        "6311ed01a05aa04f65a2a08997b72da0d530abe809a6cc9d2c436f386d41a540",
+        "a5e04776d01905ac82002d684052de00cf9e89a4a8e755327a716e36a20c57b8"),
+    "256,8": (
+        "d9cb6f113ed5270ca978cb762c309404c9ae76ed8af16bfb08933eca08a970ca",
+        "d086c96dacffb0a91b7c027ef842252072ac15cb181f37845c56a7c4484e2db0"),
+    "384,1": (
+        "c194063ca0ccaa2bc4af7e9577944946965aab5f7924870c2edcc4c11fd83081",
+        "ec8c27360754268ad3612e90010768e69725db6ddcdfdf555e5f3a5f929f6c06"),
+    "384,8": (
+        "1ba24a1eb8c4c85fb236e992e85dd7f27ac393d619ba72f8c6280f433b99fccf",
+        "07ea7a5edebc931b1083aa244c9c7065a78e39d29828b85f298dbc021c9b7566"),
+    "512,1": (
+        "f38e8df8483363ba51b39f0ed1ec3fa58e6568d5738a455ca2bd07f23a98285c",
+        "8e6b852c9c234910a00ea8deed49daac49a62ee306cfdb4e8fc946502b08a666"),
+    "512,8": (
+        "45ad9efce28c7333071f951466de2e928aaf72d8f2048c1aff96bf624558babf",
+        "93f55d863f02817dbb9b8461e738aaad115893eeea9f369df6559d9e77b3b7fc"),
+    "1024,1": (
+        "961f9fee770ae61c1b700c59fb362491a942b156ebac932636c4a24c574cda05",
+        "94d86132ac80e58d736231ab199e10b98b3784f78f0dd8777adae18601e1db82"),
+    "1024,8": (
+        "b3314a4b033e554ad31180366de48fcbb77d8ec02196480b51ef95e11f2ab26f",
+        "3c26845a85ea11c31dd380567566728d4703b1b9693cc5e08120d67f46c7c72b"),
+    "512,32": (
+        "339dfbffd692ac54b300a022d622f91ed739424898e1ec39bbb7c9a21f8e7c63",
+        "d26f7ff3b3a953af0390c840ac72fac32b5c5eead14e6f9b0ae0acfdc1341f8d"),
+    "frontend_break": (
+        "e5b0559633cb9bae8f984ec7ec235d8e123a4936afa84669ca6a48fef5131d4b",
+        "8b88a553bb2f43a35cdf752d6f61f85183b3ebbbbbf4d37c5ccb455fb2ea1457"),
+    "frontend_lm0": (
+        "ce4e6ee59b5589ee6ae7a1dd60fad652fc6316ab3e0d44a85ac2168f24041758",
+        "154ac89b0cc4701ace0e543469b4d4752106df43b5b371e31f99504a4b3b0d91"),
+}
+
+
+@functools.lru_cache(maxsize=1)
+def _frontend_gate_spec():
+    """chip_smoke.frontend_gate_graph()'s graph spec (built in f64 on the
+    CPU, bit-reproducible), with torch's thread count left as it was."""
+    threads = torch.get_num_threads()
+    try:
+        return _chip_smoke().frontend_gate_graph()[0]
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,kb", [(3, 256), (4, 384), (8, 512)])
+@pytest.mark.parametrize("case", list(K1_SHA256))
+def test_k1_bits_as_before_the_strip_work_list(cuda_device, case):
+    """K1 gives (ldinv, lp) bit for bit as the commit of K1_SHA256 did on
+    the same inputs: its sums run in the same order whatever its tiles."""
+    want_in, want_out = K1_SHA256[case]
+    if case.startswith("frontend"):
+        cs = _chip_smoke()
+        graph = cs.port_graph(_frontend_gate_spec(), cuda_device).to(
+            dtype=torch.float32)
+        bl = build_band_chol(build_layout(graph))
+        assert (bl.kb, bl.nb) == (256, 21)
+        lam = cs.FE_BREAK_LAM if case == "frontend_break" else cs.LM_LAMBDA0
+        dsym, lcoup = cs.gate_band(graph, bl, cuda_device, lam)
+    else:
+        kb, batch = map(int, case.split(","))
+        dsym, lcoup = _k1_band(kb, batch, cuda_device)
+    assert _sha256(dsym, lcoup) == want_in
+    assert _sha256(*bk.factorize_kernel(dsym, lcoup)) == want_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8, 32])
+def test_k1_work_tally(cuda_device, batch):
+    """One K1 call at kb=512, nb=3 adds to K1_WORK exactly what k1_work
+    computes from the shapes and the strip height K1 reports (each strip
+    of L once a panel step), and issues at most 12 device kernels a block
+    row, no copy or memset, each under one of the names the benchmark
+    counts as K1's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    nb = 3
+    dsym, lcoup = _k1_band(512, batch, cuda_device)
+    bk.factorize_kernel(dsym, lcoup)
+    torch.cuda.synchronize()
+    before, calls = dict(bk.K1_WORK), dict(bk.K1_STRIP_ROWS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bk.factorize_kernel(dsym, lcoup)
+        torch.cuda.synchronize()
+    added = {k: bk.K1_WORK[k] - before[k] for k in before}
+    heights = {r: bk.K1_STRIP_ROWS[r] - calls[r] for r in calls}
+    assert sorted(heights.values()) == [0, 1], heights
+    rows = max(heights, key=heights.get)
+    assert added == bk.k1_work(nb, 512, batch, rows)
+    assert added["strips"] == batch * nb * (384 + 256 + 128) // rows
+    dev = [e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert dev and not [n for n in dev if "emcpy" in n or "emset" in n], dev
+    assert len(dev) <= 12 * nb, len(dev)
+    k1_name = re.compile(r"\b(gemm_nt|panel_chol_inv|trail_offdiag)\b")
+    assert all(k1_name.search(n) for n in dev), set(dev)
+
+
+# Strip heights of the shapes timed with both on an H100 (132 SMs): the
+# faster of the two at each.
+K1_TIMED_ROWS = {(384, 1): 32, (512, 1): 32, (512, 8): 32, (512, 16): 64,
+                 (512, 32): 64, (1024, 1): 64, (1024, 8): 64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb,batch", list(K1_TIMED_ROWS))
+def test_k1_strip_rows_follow_the_timed_shapes(cuda_device, kb, batch):
+    """On a card of 132 SMs K1 takes, at each shape timed with both strip
+    heights, the faster one."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the heights were timed on 132 SMs, this card has {sms}")
+    dsym, lcoup, _ = _random_band(batch, kb, cuda_device)
+    calls = dict(bk.K1_STRIP_ROWS)
+    bk.factorize_kernel(dsym.view(batch, 1, kb, kb),
+                        lcoup.view(batch, 1, kb, kb))
+    added = {r: bk.K1_STRIP_ROWS[r] - calls[r] for r in calls}
+    want = K1_TIMED_ROWS[kb, batch]
+    assert added == {r: int(r == want) for r in calls}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,kb", [(3, 256), (4, 384), (8, 512),
+                                      (32, 512), (2, 2048)])
 def test_batched_kernels_match_per_graph(cuda_device, batch, kb):
     """K1/K2 over a batch axis: graph i of the batch equals the unbatched
     kernels on graph i bit for bit, with one launch a call."""
